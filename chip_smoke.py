@@ -22,6 +22,20 @@ phase raises on failure, so any failure exits non-zero:
      times from a torch.profiler capture of run_device's trace scopes
   6. each kernel at the main path's shapes on the main path's inputs:
      bit-equal to its plain version, both timed, beside its bound
+  7. small chained batch: three 2.5 MiB frames (two block groups each),
+     the committed dictionary frames (zstd_tpu_torch/testdata) and a
+     2.5 MiB frame broken in its second group; the window kernel bit-equal
+     to its plain version there, every byte checked, the broken frame
+     equal to the host oracle's answer and alone in failing
+  8. chained path: 16 frames of 8 MiB (make_corpus(128, frame_kb=8192),
+     8 MiB window, about 5 block groups each) through decode_frames (every
+     byte checked, no frame on the host) and one serving run, whose window
+     kernel launches the kernels line reports; a warm-up, 5 timed serving
+     runs and per-stage device times, as in 5; the accumulator's size
+  9. far window: one 12 MiB frame at window_log 24 (bench.py's bigwindow
+     body) decoded and timed; how many resolved matches reach past 8 MiB
+ 10. the window kernel at the chained path's shapes on its inputs: bit-equal
+     to its plain version, both timed, beside its bound
 
 The line before the last is the `kernels` JSON object; the last line is
 {"ok": true, "device": {...}}.
@@ -99,6 +113,22 @@ def _seq_args(d):
                            "seq_trail_slot")]
 
 
+def stage_outputs(d):
+    """Literal rows and records after the entropy stages on staged batch d:
+    (lit, ll, ml, of)."""
+    import torch
+
+    from zstd_tpu_torch.ops import huffman, sequence
+
+    dev = d["lit_base"].device
+    lit = d["lit_base"].clone()
+    ll, ml, of = (d[k].clone() for k in ("ll_base", "ml_base", "of_base"))
+    ok = torch.ones(lit.shape[0], dtype=torch.bool, device=dev)
+    huffman.huffman_lanes(*_huff_args(d), lit, ok)
+    sequence.sequence_lanes(*_seq_args(d), ll, ml, of, ok)
+    return lit, ll, ml, of
+
+
 def kernel_cases(d, out_width):
     """{name: (setup() -> buffers, call(fn, buffers) -> outputs, kernel fn,
     plain fn)} on the staged batch `d`, plus the stage outputs. The execute
@@ -127,8 +157,7 @@ def kernel_cases(d, out_width):
         fn(*_seq_args(d), *bufs)
         return bufs
 
-    lit, _ = call_huff(huffman.huffman_lanes, setup_huff())
-    ll, ml, of, _ = call_seq(sequence.sequence_lanes, setup_seq())
+    lit, ll, ml, of = stage_outputs(d)
     offsets, out_len, _ = _resolve(ll, ml, of, d["is_real"], d["init_hist"])
     rows = d["exec_rows"]
     out, _ = execute.execute_lanes(ll, ml, offsets, lit, out_len, rows,
@@ -153,6 +182,38 @@ def kernel_cases(d, out_width):
                      xxhash64.xxh64_low32_lanes_plain),
     }
     return cases, dict(ll=ll, ml=ml, out_len=out_len, length=length)
+
+
+def window_case(d):
+    """(setup, call, kernel, plain) of the window kernel on the staged
+    batch `d` (which holds chained frames), its inputs what the stages
+    before it produce, plus those inputs."""
+    import torch
+
+    from zstd_tpu_torch.models.batch_decoder import _resolve_chained
+    from zstd_tpu_torch.ops import execute_window as ew
+
+    lit, ll, ml, of = stage_outputs(d)
+    offsets, out_len, _ = _resolve_chained(
+        ll, ml, of, d["is_real"], d["init_hist"], d["chain_rows"],
+        d["chain_row_cont"])
+    ch = d["chains"]
+
+    def setup():
+        acc = torch.zeros((d["chain_rows"].shape[0], ch["width"]),
+                          dtype=torch.uint8, device=lit.device)
+        if ch["base"]:
+            acc[:, :ch["base"]] = d["chain_prefill"]
+        return [acc]
+
+    def call(fn, bufs):
+        written, ok = fn(ll, ml, offsets, lit, out_len, d["row_lit_len"],
+                         d["chain_rows"], bufs[0], ch["base"],
+                         d["chain_hist0"], d["chain_cap"])
+        return [bufs[0], written, ok]
+
+    return ((setup, call, ew.execute_window, ew.execute_window_plain),
+            dict(ll=ll, ml=ml, offsets=offsets, out_len=out_len))
 
 
 def max_abs_err(a_list, b_list) -> int:
@@ -292,12 +353,14 @@ def phase_small():
 
 
 def _counters():
-    from zstd_tpu_torch.ops import execute, huffman, sequence, xxhash64
+    from zstd_tpu_torch.ops import (execute, execute_window, huffman,
+                                    sequence, xxhash64)
 
     return {"huffman": huffman.huffman_lanes,
             "sequence": sequence.sequence_lanes,
             "execute": execute.execute_lanes,
-            "xxhash64": xxhash64.xxh64_low32_lanes}
+            "xxhash64": xxhash64.xxh64_low32_lanes,
+            "execute_window": execute_window.execute_window}
 
 
 def phase_main():
@@ -348,20 +411,23 @@ def phase_main():
     for k in ("huffman", "sequence", "execute"):
         need(decode_launches[k] > 0,
              f"main path: decode_frames never launched kernel {k}")
-    for k, n in launches.items():
-        need(n > 0, f"main path: serving run never launched kernel {k}")
+    for k in SINGLE_GROUP:
+        need(launches[k] > 0,
+             f"main path: serving run never launched kernel {k}")
     say(f"host prepare (framing) {t_prepare * 1e3:.3f} ms, stage "
         f"(upload) {t_stage * 1e3:.3f} ms")
     say(f"main path: decode_frames {t_decode:.2f} s, all {len(frames)} "
         f"frames byte-exact, host_frames 0, {n_huff} Huffman lanes, "
-        f"{n_seq} sequence lanes, launches {decode_launches}")
+        f"{n_seq} sequence lanes, {int(batch.seq_n.sum())} sequences, "
+        f"launches {decode_launches}")
     say(f"main path: one serving run, checksums verified on the device, "
         f"launches {launches}")
     return dec, batch, staged, n_bytes, launches
 
 
+SINGLE_GROUP = ("huffman", "sequence", "execute", "xxhash64")
 STAGES = ("huffman_decode", "sequence_decode", "offset_resolution",
-          "lz77_execute", "device_checksum")
+          "lz77_execute", "device_checksum", "lz77_window_execute")
 
 
 def profiled_stages(dec, batch, staged, runs: int):
@@ -393,27 +459,31 @@ def profiled_stages(dec, batch, staged, runs: int):
     return stage_ms, busy / runs / 1e3
 
 
-def phase_serving(dec, batch, staged, n_bytes):
+def phase_serving(dec, batch, staged, n_bytes, label: str = "serving",
+                  runs: int = 5):
+    """A warm-up and `runs` timed serving runs, then per-stage device times
+    (torch.profiler, 3 runs). Single-group frames' checksums are verified
+    on the device; chained frames' are not (as in the reference)."""
     import torch
 
     dec.run_device(batch, staged, pull_outputs=False)  # warm-up
-    runs, times = 5, []
+    times = []
     for _ in range(runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, _, ok = dec.run_device(batch, staged, pull_outputs=False)
         times.append(time.perf_counter() - t0)
-        need(bool(np.all(ok)), "serving: checksum or lane failure")
+        need(bool(np.all(ok)), f"{label}: checksum or lane failure")
     t = sum(times) / runs
-    say(f"serving: {runs} runs, mean {t * 1e3:.3f} ms, "
-        f"{n_bytes / t / 1e9:.4f} GB/s, checksums verified on the device")
+    say(f"{label}: {runs} runs, mean {t * 1e3:.3f} ms, "
+        f"{n_bytes / t / 1e9:.4f} GB/s")
     stage_ms, busy_ms = profiled_stages(dec, batch, staged, runs=3)
     if busy_ms == 0:
-        say("serving stages: the profiler saw no device time; not measured")
+        say(f"{label} stages: the profiler saw no device time; not measured")
         return t, {}
-    say("serving stages (device ms per run, torch.profiler, 3 runs): "
-        + json.dumps(stage_ms))
-    say(f"serving: device busy {busy_ms:.3f} ms per run (torch.profiler) "
+    say(f"{label} stages (device ms per run, torch.profiler, 3 runs): "
+        + json.dumps({k: v for k, v in stage_ms.items() if v}))
+    say(f"{label}: device busy {busy_ms:.3f} ms per run (torch.profiler) "
         f"of {t * 1e3:.3f} ms unprofiled wall; idle share "
         f"{1 - busy_ms / (t * 1e3):.4f}")
     return t, stage_ms
@@ -491,6 +561,226 @@ def phase_kernels(batch, staged, launches):
     return rows
 
 
+# --- chained frames ----------------------------------------------------------
+
+def _break_last_block(frame: bytes) -> bytes:
+    """The frame with the last byte of its last compressed block zeroed:
+    that block's sequence bitstream loses its padding sentinel."""
+    from zstd_tpu_torch.common import constants as C
+    from zstd_tpu_torch.oracle import blocks, frame as frame_mod
+
+    pos = frame_mod.parse_frame_header(frame).header_size
+    last = None
+    while True:
+        bh = blocks.parse_block_header(frame[pos:pos + 3])
+        pos += 3 + (1 if bh.block_type == C.BLOCK_RLE else bh.block_size)
+        if bh.block_type == C.BLOCK_COMPRESSED:
+            last = pos - 1
+        if bh.last_block:
+            break
+    bad = bytearray(frame)
+    bad[last] = 0
+    return bytes(bad)
+
+
+def _oracle(frame, dicts=()):
+    from zstd_tpu_torch.common.errors import ZstdError
+    from zstd_tpu_torch.oracle import decode_all
+
+    try:
+        return decode_all(frame, dicts=list(dicts))
+    except ZstdError:
+        return None
+
+
+def phase_chained_small():
+    from zstd_tpu_torch.common.config import CompressionLevel
+    from zstd_tpu_torch.encoding.frame_enc import compress_to_vec
+    from zstd_tpu_torch.models.batch_decoder import BatchDecoder
+    from zstd_tpu_torch.oracle import Dictionary
+    from zstd_tpu_torch.testdata import load_dict_fixture, matches_digest
+
+    payloads = make_corpus(10, frame_kb=2560, seed=3)[:4]
+    frames = [bytes(compress_to_vec(p, CompressionLevel.FASTEST))
+              for p in payloads]
+    frames[3] = _break_last_block(frames[3])  # in its last block group
+    raw, dict_frames, digests = load_dict_fixture()
+    frames += dict_frames
+    dec = BatchDecoder()
+    dec.add_dict(raw)
+    batch = dec.prepare(frames)
+    need(all(len(m.rows) > 1 for m in batch.metas[:4]),
+         "chained small: a 2.5 MiB frame is not chained")
+    need(all(m.dict_prefill for m in batch.metas[4:]),
+         "chained small: dictionary frames without a prefill")
+    d = dec.stage(batch)
+    case, _ = window_case(d)
+    compare("execute_window", *case)
+    res = dec.decode_frames(frames)
+    for i in range(3):
+        need(res[i] == payloads[i], f"chained small: frame {i} decoded wrong")
+    need(res[3] is None and res[3] == _oracle(frames[3]),
+         "chained small: broken frame differs from the host oracle")
+    dicts = [Dictionary.decode_dict(raw)]
+    for r, f, dg in zip(res[4:], dict_frames, digests):
+        need(matches_digest(r, dg) and r == _oracle(f, dicts),
+             "chained small: a dictionary frame decoded wrong")
+    _, _, ok = dec.run_device(batch, d)
+    bad = [i for i, m in enumerate(batch.metas) if not ok[m.rows[0]]]
+    need(bad == [3], f"chained small: lanes {bad} failed, expected [3]")
+    need(dec.host_frames == 0, f"chained small: {dec.host_frames} host frames")
+    say(f"chained small: window kernel bit-equal to its plain version on "
+        f"{len(frames)} chained frames (3 x 2.5 MiB, 1 broken, "
+        f"{len(dict_frames)} dictionary frames); bytes exact, the broken "
+        f"frame None as the oracle says, only its lane failed, host_frames 0")
+
+
+def phase_chained():
+    import torch
+
+    from zstd_tpu_torch.common.config import CompressionLevel
+    from zstd_tpu_torch.encoding.frame_enc import compress_to_vec
+    from zstd_tpu_torch.models.batch_decoder import BatchDecoder
+
+    t0 = time.perf_counter()
+    payloads = make_corpus(128, frame_kb=8192)
+    frames = [bytes(compress_to_vec(p, CompressionLevel.FASTEST))
+              for p in payloads]
+    n_bytes = sum(len(p) for p in payloads)
+    say(f"chained path input: {len(frames)} frames, {n_bytes} bytes, ratio "
+        f"{sum(map(len, frames)) / n_bytes:.4f}, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    dec = BatchDecoder()
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = dec.decode_frames(frames)
+    t_decode = time.perf_counter() - t0
+    decode_launches = {k: fn.launches for k, fn in counters.items()}
+    t0 = time.perf_counter()
+    batch = dec.prepare(frames)
+    t_prepare = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    staged = dec.stage(batch)
+    torch.cuda.synchronize()
+    t_stage = time.perf_counter() - t0
+    for fn in counters.values():
+        fn.launches = 0
+    _, _, ok = dec.run_device(batch, staged, pull_outputs=False)
+    launches = {k: fn.launches for k, fn in counters.items()}
+
+    need(len(res) == len(payloads)
+         and all(r == p for r, p in zip(res, payloads)),
+         "chained path: decoded bytes differ from the payloads")
+    need(bool(np.all(ok)), "chained path: a frame failed in serving mode")
+    need(dec.host_frames == 0, f"chained path: {dec.host_frames} host frames")
+    groups = [len(m.rows) for m in batch.metas]
+    need(min(groups) > 1, "chained path: a frame is not chained")
+    for k in ("huffman", "sequence", "execute_window"):
+        need(decode_launches[k] > 0 and launches[k] > 0,
+             f"chained path: kernel {k} was not launched")
+    ch = staged["chains"]
+    C = staged["chain_rows"].shape[0]
+    window = batch.metas[0].window
+    say(f"chained path: window {window} bytes, block groups per frame "
+        f"{min(groups)}-{max(groups)}, {int((batch.huff_nsym > 0).sum())} "
+        f"Huffman lanes, {int((batch.seq_n > 0).sum())} sequence lanes, "
+        f"{int(batch.seq_n.sum())} sequences, accumulator {ch['width']} "
+        f"bytes per chain, {C * ch['width']} bytes in all")
+    say(f"chained path: host prepare {t_prepare * 1e3:.3f} ms, stage "
+        f"{t_stage * 1e3:.3f} ms, decode_frames {t_decode:.2f} s, all "
+        f"{len(frames)} frames byte-exact, host_frames 0, launches "
+        f"{decode_launches}")
+    say(f"chained path: one serving run, launches {launches}")
+    return dec, batch, staged, n_bytes, launches
+
+
+def phase_far():
+    import torch
+
+    from zstd_tpu_torch.common.config import CodecConfig, CompressionLevel
+    from zstd_tpu_torch.encoding.frame_enc import compress_to_vec
+    from zstd_tpu_torch.models import framer
+    from zstd_tpu_torch.models.batch_decoder import (BatchDecoder,
+                                                     _resolve_chained)
+
+    # bench.py's bigwindow body: 9 MiB, its first MiB again, 1 MiB more,
+    # then MiB 2-3 again: matches 9+ MiB back
+    head = b"".join(make_corpus(9, seed=7))
+    body = (head + head[:1 << 20] + b"".join(make_corpus(1, seed=8))
+            + head[2 << 20:3 << 20])
+    frame = bytes(compress_to_vec(body, CompressionLevel.FASTEST,
+                                  CodecConfig(window_log=24)))
+    dec = BatchDecoder()
+    batch = dec.prepare([frame])
+    m = batch.metas[0]
+    need(m.window > framer.STREAM_WINDOW_CAP,
+         f"far: window {m.window} is not past {framer.STREAM_WINDOW_CAP}")
+    need(dec.decode_frames([frame]) == [body], "far: decoded bytes differ")
+    need(dec.host_frames == 0, "far: the frame went to the host")
+    d = dec.stage(batch)
+    _, ll, ml, of = stage_outputs(d)
+    offsets, _, _ = _resolve_chained(ll, ml, of, d["is_real"],
+                                     d["init_hist"], d["chain_rows"],
+                                     d["chain_row_cont"])
+    far = (ml > 0) & (offsets > framer.STREAM_WINDOW_CAP)
+    n_far = int(far.sum())
+    longest = int(torch.where(ml > 0, offsets, 0).max())
+    if n_far:
+        say(f"far: {n_far} resolved matches reach past "
+            f"{framer.STREAM_WINDOW_CAP} bytes (longest offset {longest})")
+    else:
+        say(f"far: the port's encoder made no match past "
+            f"{framer.STREAM_WINDOW_CAP} bytes (longest offset {longest}); "
+            f"the far reach is not exercised by this frame")
+    say(f"far: window {m.window}, {len(m.rows)} block groups, "
+        f"{len(body)} bytes exact, host_frames 0")
+    phase_serving(dec, batch, d, len(body), label="far serving", runs=3)
+
+
+def _window_bound(d, inputs, written):
+    """Least time of the window kernel on these inputs: 12 bytes a record
+    (up to each row's last active slot), the literal bytes, the plan and
+    the output bytes over the memory rate, or an operation per output byte
+    over the ALU rate, whichever is larger."""
+    import torch
+
+    rows = d["chain_rows"].long().flatten()
+    run = (inputs["ll"] + inputs["ml"])[rows] > 0
+    idx = torch.arange(1, run.shape[1] + 1, device=run.device)[None, :]
+    records = int(torch.where(run, idx, 0).max(dim=1).values.sum())
+    n_out = int(written.sum())
+    nbytes = (12 * records + int(d["row_lit_len"][rows].long().sum())
+              + 16 * rows.numel() + n_out)
+    tb = nbytes / H100_BYTES_PER_S * 1e3
+    to = n_out / H100_OPS_PER_S * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def phase_window_kernel(staged, launches):
+    import torch
+
+    case, inputs = window_case(staged)
+    err = compare("execute_window", *case)
+    setup, call, kern, plain = case
+    written = call(kern, setup())[1]
+    bound, bound_by = _window_bound(staged, inputs, written)
+    ms = cuda_ms(setup, call, kern, reps=3)
+    plain_ms = cuda_ms(setup, call, plain, reps=1)
+    say(f"kernel execute_window: {ms:.4f} ms (plain {plain_ms:.2f} ms, "
+        f"bound {bound:.4f} ms by {bound_by}), max abs err {err} "
+        f"(tolerance 0: integer codec), {int(written.sum())} bytes")
+    torch.cuda.empty_cache()
+    return {"name": "execute_window", "route": "cuda",
+            "source": "zstd_tpu_torch/csrc/execute_window.cu",
+            "replaces": "zstd_tpu/ops/pallas_execute.py:1076",
+            "launches": launches["execute_window"], "max_abs_err": err,
+            "ms": round(ms, 6), "plain_ms": round(plain_ms, 6),
+            "bound_ms": round(bound, 6), "bound_by": bound_by,
+            "library_ms": None}
+
+
 def main() -> int:
     import torch
 
@@ -512,6 +802,12 @@ def main() -> int:
     dec, batch, staged, n_bytes, launches = phase_main()
     phase_serving(dec, batch, staged, n_bytes)
     rows = phase_kernels(batch, staged, launches)
+    del dec, batch, staged
+    phase_chained_small()
+    dec, batch, staged, n_bytes, launches = phase_chained()
+    phase_serving(dec, batch, staged, n_bytes, label="chained serving")
+    phase_far()
+    rows.append(phase_window_kernel(staged, launches))
     say(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ decode_frames on the mixed batch of test_torch_framer (libzstd levels 1, 3
 and 19, the package's own encoder, multi-block, raw, RLE, dictionary, no
 checksum, malformed) is byte-equal to zstd_tpu's BatchDecoder, to the host
 oracle and to libzstd. A corrupted frame returns None and poisons only its
-own lane; the chained dictionary frame goes to the host oracle and is
-counted; serving mode flags a frame whose checksum field was flipped.
+own lane; the chained dictionary frame (its content seeds the history)
+decodes on the device, with no frame sent to the host; serving mode flags a
+frame whose checksum field was flipped.
 """
 
 import numpy as np
@@ -71,13 +72,19 @@ def test_bad_frames_poison_only_their_lanes(mixed, decoded):
     assert all(o == p for o, p in zip(out, payloads) if p is not None)
 
 
-def test_chained_frame_goes_to_host_and_is_counted(mixed):
+def test_chained_frame_decodes_on_device(mixed):
     frames, payloads, dict_bytes = mixed
     dec = BatchDecoder(device="cpu")
     dec.add_dict(dict_bytes)
-    assert dec.decode_frames(frames[CHAINED:CHAINED + 2]) == \
-        payloads[CHAINED:CHAINED + 2]
-    assert dec.host_frames == 1
+    batch = dec.prepare(frames[CHAINED:CHAINED + 2])
+    assert batch.metas[0].dict_prefill and not batch.metas[0].fallback
+    outputs, out_len, ok = dec.run_device(batch)
+    r = batch.metas[0].rows[0]
+    assert bool(ok[r])
+    assert outputs[r][:int(out_len[r])].tobytes() == payloads[CHAINED]
+    assert dec._postprocess(frames[CHAINED:CHAINED + 2], batch, outputs,
+                            out_len, ok) == payloads[CHAINED:CHAINED + 2]
+    assert dec.host_frames == 0
 
 
 def test_serving_mode_flags_flipped_checksum(mixed):

@@ -3,7 +3,11 @@
 These need an NVIDIA GPU with nvcc and skip elsewhere. Every comparison is
 bit-exact, `ok` flags included: the codec is integer-only (tolerance 0).
 The inputs are real batches framed from the package's own encoder, a
-corrupted lane, and hand-made execution regimes. This file imports neither
+corrupted lane, hand-made execution regimes and random chained frames for
+the windowed executor (near and far caps, dictionary prefills, matches
+across group boundaries, bad offsets); the decoder runs chained frames and
+the committed dictionary frames of zstd_tpu_torch/testdata. This file
+imports neither
 jax nor zstandard, so on the GPU machine it runs with:
 
     python -m pytest --noconftest -p no:cacheprovider -q \
@@ -19,10 +23,13 @@ from zstd_tpu_torch.encoding.frame_enc import compress_to_vec
 from zstd_tpu_torch.models.batch_decoder import BatchDecoder
 from zstd_tpu_torch.ops import _kernels
 from zstd_tpu_torch.ops.execute import execute_lanes, execute_lanes_plain
+from zstd_tpu_torch.ops.execute_window import (execute_window,
+                                               execute_window_plain)
 from zstd_tpu_torch.ops.huffman import huffman_lanes, huffman_lanes_plain
 from zstd_tpu_torch.ops.sequence import sequence_lanes, sequence_lanes_plain
 from zstd_tpu_torch.ops.xxhash64 import (xxh64_low32_lanes,
                                          xxh64_low32_lanes_plain)
+from zstd_tpu_torch.testdata import load_dict_fixture, matches_digest
 
 pytestmark = pytest.mark.cuda
 
@@ -46,6 +53,99 @@ def _payloads(n: int, size: int, seed: int = 0) -> list:
             p = base * (size // len(base) + 1)
         out.append(p[:size])
     return out
+
+
+def random_chains(seed: int, n_chains: int = 8, groups: int = 3,
+                  S: int = 64, lit_w: int = 1024):
+    """Random chained frames for the windowed executor, and what it must
+    give: the inputs of execute_window as numpy arrays, the expected
+    accumulator, written bytes and ok per chain (a byte-by-byte loop).
+
+    Chains differ in their dictionary prefill (hist0, 0 for some) and cap
+    (a small near window, or a large far one). Matches reach across group
+    boundaries into earlier groups and the prefill, and overlap their own
+    output. Chain 1 has an offset past its reach in its second group, and
+    chain 2 (small cap) one that lies inside its history but past its
+    cap: both stop after their first group. The last chain is one group
+    short, its plan padded with the inert row."""
+    rng = np.random.default_rng(seed)
+    C, K = n_chains, groups
+    Bf = C * K + 1
+    inert = Bf - 1
+    rec = np.zeros((3, Bf, S), np.int32)
+    lit = rng.integers(0, 256, (Bf, lit_w)).astype(np.uint8)
+    lit[inert] = 0
+    out_len = np.zeros(Bf, np.int32)
+    row_lit_len = np.zeros(Bf, np.int32)
+    plan = np.arange(C * K, dtype=np.int32).reshape(C, K)
+    plan[C - 1, K - 1] = inert
+    hist0 = np.where(np.arange(C) % 3 == 0, 0,
+                     rng.integers(1, 400, C)).astype(np.int32)
+    cap = np.where(np.arange(C) % 2 == 0, 1 << 20, 512).astype(np.int64)
+    cap[2] = 256
+    base = int(hist0.max())
+    prefills = [rng.integers(0, 256, int(h)).astype(np.uint8).tobytes()
+                for h in hist0]
+    outs, oks = [], []
+    for c in range(C):
+        hist = bytearray(prefills[c])  # prefill, then the chain's output
+        done, alive = 0, True
+        for k in range(K - 1 if c == C - 1 else K):
+            row = c * K + k
+            w = len(hist) - len(prefills[c])
+            avail = min(w + int(hist0[c]), int(cap[c]))
+            pos = lp = 0
+            bad = (c in (1, 2)) and k == 1
+            for i in range(int(rng.integers(S // 2, S))):
+                l = min(int(rng.integers(0, 40)), lit_w - lp)
+                reach = pos + l + avail
+                m = int(rng.integers(1, 60)) if reach else 0
+                u = rng.random()
+                if not m:
+                    o = 0
+                elif u < 0.3 and reach > pos + l:
+                    o = int(rng.integers(pos + l + 1, reach + 1))  # boundary
+                elif u < 0.5:
+                    o = int(rng.integers(1, min(m, reach) + 1))  # overlap
+                else:
+                    o = int(rng.integers(1, reach + 1))
+                if bad and i == 3:
+                    m = max(m, 1)
+                    o = (reach + 1 if c == 1
+                         else min(pos + l + w + int(hist0[c]), reach + 9))
+                rec[:, row, i] = (l, m, o)
+                hist += lit[row, lp:lp + l].tobytes()
+                for _ in range(m if o <= len(hist) else 0):
+                    hist.append(hist[-o])
+                pos += l + m
+                lp += l
+            out_len[row] = pos
+            row_lit_len[row] = lp
+            if alive and not bad:
+                done = len(hist) - len(prefills[c])
+            alive = alive and not bad
+        outs.append(bytes(hist[len(prefills[c]):len(prefills[c]) + done]))
+        oks.append(alive)
+    width = base + int(out_len.max()) * K + 16
+    acc = np.zeros((C, width), np.uint8)
+    expect = acc.copy()
+    for c in range(C):
+        acc[c, base - len(prefills[c]):base] = np.frombuffer(prefills[c],
+                                                              np.uint8)
+        expect[c] = acc[c]
+        expect[c, base:base + len(outs[c])] = np.frombuffer(outs[c], np.uint8)
+    inputs = dict(ll=rec[0], ml=rec[1], offset=rec[2], lit=lit,
+                  out_len=out_len, row_lit_len=row_lit_len, plan=plan,
+                  acc=acc, base=base, hist0=hist0, cap=cap)
+    return inputs, dict(acc=expect, written=[len(o) for o in outs], ok=oks)
+
+
+def window_args(inputs, device):
+    """execute_window's arguments on `device` (a fresh accumulator)."""
+    return [inputs["base"] if k == "base"
+            else torch.from_numpy(np.ascontiguousarray(inputs[k])).to(device)
+            for k in ("ll", "ml", "offset", "lit", "out_len", "row_lit_len",
+                      "plan", "acc", "base", "hist0", "cap")]
 
 
 @pytest.fixture(scope="module")
@@ -270,3 +370,43 @@ def test_execute_kernel_random_records(cuda, seed):
     assert torch.equal(out_k, out_p) and bool(ok_k.all())
     for b, e in enumerate(expect):
         assert out_k[b, :len(e)].cpu().numpy().tobytes() == e
+
+
+@pytest.mark.parametrize("seed", [21, 22, 23])
+def test_window_kernel_random_chains(cuda, seed):
+    inputs, exp = random_chains(seed)
+    got = []
+    for fn in (execute_window, execute_window_plain):
+        args = window_args(inputs, cuda)
+        written, ok = fn(*args)
+        got.append((args[7], written, ok))
+    torch.cuda.synchronize()
+    (acc_k, w_k, ok_k), (acc_p, w_p, ok_p) = got
+    assert torch.equal(acc_k, acc_p) and torch.equal(w_k, w_p)
+    assert torch.equal(ok_k, ok_p)
+    assert np.array_equal(acc_k.cpu().numpy(), exp["acc"])
+    assert w_k.tolist() == exp["written"] and ok_k.tolist() == exp["ok"]
+
+
+def test_decoder_on_cuda_chained(cuda):
+    """Chained frames (2.5 MiB, two block groups each) and the dictionary
+    frames decode through the window kernel, none on the host."""
+    raw, dict_frames, digests = load_dict_fixture()
+    payloads = _payloads(3, 5 << 19, seed=4)
+    frames = [bytes(compress_to_vec(p, CompressionLevel.FASTEST))
+              for p in payloads] + dict_frames
+    dec = BatchDecoder(device=cuda)
+    dec.add_dict(raw)
+    batch = dec.prepare(frames)
+    assert all(len(m.rows) > 1 for m in batch.metas[:3])
+    before = execute_window.launches
+    out = dec.decode_frames(frames)
+    assert out[:3] == payloads
+    assert all(matches_digest(o, dg) for o, dg in zip(out[3:], digests))
+    assert execute_window.launches == before + 1 and dec.host_frames == 0
+    outputs, out_len, ok = dec.run_device(batch, pull_outputs=False)
+    for m, p in zip(batch.metas, payloads):
+        acc, lane, base = outputs[m.rows[0]]
+        n = int(out_len[m.rows[0]])
+        assert bool(ok[m.rows[0]]) and n == len(p)
+        assert acc[lane, base:base + n].cpu().numpy().tobytes() == p

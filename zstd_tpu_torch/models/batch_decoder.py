@@ -6,16 +6,21 @@ launch per device stage over all live lanes:
   stage 1a: Huffman literal lanes -> frame literal rows (ops/huffman.py)
   stage 1b: tANS sequence lanes -> frame slot arrays, trailing-literal fill
             (ops/sequence.py)
-  stage 2:  repeat-offset resolution and exact output lengths
+  stage 2:  repeat-offset resolution and exact output lengths; the block
+            groups of a chained frame compose their histories in order
   stage 3:  LZ77 execution of every single-group frame (ops/execute.py)
   stage 3a': with pull_outputs=False, the frame checksums on the device
             (ops/xxhash64.py)
+  stage 3b: LZ77 execution of every chained frame, all block groups of all
+            chains in one launch (ops/execute_window.py)
 
-Frames the device path does not cover yet — chained block groups (frames
-past the framer's group caps, and dictionary frames whose content seeds a
-window) — decode on the host oracle and are counted in `host_frames`.
-Frames whose lane flags tripped fall back to the oracle too: a bad frame
-poisons only its own lane (its result is None when the oracle rejects it).
+A frame is chained when the framer split it into several block groups (its
+output passes the group caps, models/framer.py), or when it references a
+dictionary whose content seeds its history and its size is unknown. Frames
+the framer marks `fallback` decode on the host oracle and are counted in
+`host_frames`. Frames whose lane flags tripped fall back to the oracle too:
+a bad frame poisons only its own lane (its result is None when the oracle
+rejects it).
 
 The batch crossing into `stage()` is any object with the framer's
 DeviceBatch fields as NumPy arrays, so the same batch can be fed to this
@@ -29,10 +34,15 @@ import torch
 
 from zstd_tpu_torch.common.errors import ZstdError
 from zstd_tpu_torch.common.trace import scope, vprint
+from zstd_tpu_torch.models import framer as framer_mod
 from zstd_tpu_torch.models.framer import DeviceBatch, Framer
 from zstd_tpu_torch.ops.execute import execute_lanes
+from zstd_tpu_torch.ops.execute_window import execute_window
 from zstd_tpu_torch.ops.huffman import huffman_lanes
-from zstd_tpu_torch.ops.sequence import resolve_offsets, sequence_lanes
+from zstd_tpu_torch.ops.sequence import (apply_hist, compose_hist,
+                                         offsets_ok, resolve_offsets,
+                                         resolve_offsets_symbolic,
+                                         sequence_lanes)
 from zstd_tpu_torch.ops.xxhash64 import xxh64_low32_lanes
 from zstd_tpu_torch.utils.xxhash64 import xxhash64 as _host_xxh64
 
@@ -63,11 +73,75 @@ def chained_metas(batch) -> list:
             if len(m.rows) > 1 or (m.dict_prefill and m.rows)]
 
 
+def chain_plan(batch) -> dict | None:
+    """The host-side plan of the batch's chained frames, None without any.
+
+    rows (C, K) i32: each chain's rows in order, padded with the inert row
+    (no records, no output); row_cont (Bf,) bool: a chain's rows after its
+    first; hist0 (C,) i32 and prefill (C, base) u8: the chain's dictionary
+    content, right-aligned; cap (C,) i64: the history a group may reach, W
+    for a near chain and the real window for a far one (W = pow2(max(window,
+    dictionary length, 1024)) and the chain is far when W >
+    STREAM_WINDOW_CAP); base, width: the accumulator row holds the prefill
+    before `base` and the chain's output after it, `width` covering the
+    largest sum of a chain's group bounds."""
+    chained = chained_metas(batch)
+    if not chained:
+        return None
+    inert = batch.lit_base.shape[0] - 1
+    C, K = len(chained), max(len(m.rows) for m in chained)
+    rows = np.full((C, K), inert, np.int32)
+    cont = np.zeros(inert + 1, bool)
+    hist0 = np.asarray([len(m.dict_prefill) for m in chained], np.int32)
+    cap = np.zeros(C, np.int64)
+    base = int(hist0.max())
+    prefill = np.zeros((C, base), np.uint8)
+    for c, m in enumerate(chained):
+        rows[c, :len(m.rows)] = m.rows
+        cont[m.rows[1:]] = True
+        # with a dictionary, offsets reach its whole content whatever the
+        # window says (decode_buffer.rs:143-179), so W covers it
+        W = 1 << (max(int(m.window), int(hist0[c]), 1024) - 1).bit_length()
+        cap[c] = int(m.window) if W > framer_mod.STREAM_WINDOW_CAP else W
+        if hist0[c]:
+            prefill[c, base - hist0[c]:] = np.frombuffer(m.dict_prefill,
+                                                         np.uint8)
+    bound = max(sum(int(batch.out_len[r]) for r in m.rows) for m in chained)
+    return dict(rows=rows, row_cont=cont, hist0=hist0, cap=cap,
+                prefill=prefill, base=base, width=max(base + bound, 1),
+                first=[m.rows[0] for m in chained])
+
+
+def _lengths(ll_full, ml_full):
+    return (ll_full.long() + ml_full.long()).sum(dim=1).to(torch.int32)
+
+
 def _resolve(ll_full, ml_full, of_full, is_real, init_hist):
     """Stage 2: offsets, exact output lengths and ok per frame row."""
     offsets, ok = resolve_offsets(ll_full, of_full, is_real, init_hist)
-    out_len = (ll_full.long() + ml_full.long()).sum(dim=1).to(torch.int32)
-    return offsets, out_len, ok
+    return offsets, _lengths(ll_full, ml_full), ok
+
+
+def _resolve_chained(ll_full, ml_full, of_full, is_real, init_hist, rows,
+                     cont):
+    """Stage 2 when the batch holds chained frames: every row resolves
+    symbolically, then a loop over chain position (vectorised over chains,
+    rows (C, K)) carries each group's outgoing history into the next group
+    (`cont` marks those rows), and the offsets materialise. The same
+    outputs as zstd_tpu/models/batch_decoder.py::_resolve_chained, whose
+    scan runs over every row instead."""
+    tag, val, tt, tv = resolve_offsets_symbolic(ll_full, of_full, is_real)
+    hist = init_hist.to(torch.int32).clone()
+    h = hist[rows[:, 0].long()]
+    for k in range(1, rows.shape[1]):
+        prev, cur = rows[:, k - 1].long(), rows[:, k].long()
+        h = compose_hist(tt[prev], tv[prev], h)
+        # padding entries point at the inert row, which is never a
+        # continuation: they write its own history back
+        hist[cur] = torch.where(cont[cur][:, None], h, hist[cur])
+    offsets = apply_hist(tag, val, hist)
+    return (offsets, _lengths(ll_full, ml_full),
+            offsets_ok(offsets, of_full, is_real))
 
 
 class BatchDecoder:
@@ -77,12 +151,12 @@ class BatchDecoder:
         self.device = resolve_device(device)
         self.verify_checksums = verify_checksums
         self.dicts = {}
-        self.host_frames = 0  # chained frames sent to the host oracle
+        self.host_frames = 0  # frames the framer sent to the host oracle
 
     def add_dict(self, raw: bytes) -> int:
         """Register a dictionary (zstd format or raw content). Frames whose
-        header references its id decode on device when they fit one block
-        group (parity with FrameDecoder::add_dict, frame_decoder.rs:221-224)."""
+        header references its id decode on device (parity with
+        FrameDecoder::add_dict, frame_decoder.rs:221-224)."""
         from zstd_tpu_torch.oracle.dictionary import Dictionary
 
         d = Dictionary.decode_dict(raw)
@@ -98,17 +172,19 @@ class BatchDecoder:
     def stage(self, batch) -> dict:
         """Upload the batch's arrays to the device once; returns the staged
         dict. Also stages the per-run index arrays (the executed frame rows
-        and their checksum fields), so repeated runs (serving) upload
-        nothing."""
+        and their checksum fields) and the chain plan (chain_plan()), so
+        repeated runs (serving) upload nothing."""
         dev = self.device
         host = {name: np.asarray(getattr(batch, name))
                 for name in _LANE + _FRAME}
         for name in _TABLES:
             host[name] = np.asarray(getattr(batch, name)).astype(np.int32)
         host["init_hist"] = np.asarray(batch.frame_hist, np.int32)
+        host["row_lit_len"] = np.asarray(batch.row_lit_len, np.int32)
 
         frame_inert = batch.lit_base.shape[0] - 1
-        chain_rows = {r for m in chained_metas(batch) for r in m.rows}
+        plan = chain_plan(batch)
+        chain_rows = set() if plan is None else set(plan["rows"].flat)
         rows = [i for i in range(frame_inert) if i not in chain_rows]
         ck = {m.rows[0]: (m.checksum, m.dict_skip) for m in batch.metas
               if len(m.rows) == 1 and m.checksum is not None
@@ -119,9 +195,14 @@ class BatchDecoder:
                                     np.int64)
         host["ck_skip"] = np.asarray([ck.get(r, (0, 0))[1] for r in rows],
                                      np.int32)
+        if plan is not None:
+            for k in ("rows", "row_cont", "hist0", "cap", "prefill"):
+                host[f"chain_{k}"] = plan[k]
         d = {name: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
              for name, v in host.items()}
         d["exec_rows_list"] = rows
+        d["chains"] = None if plan is None else {
+            k: plan[k] for k in ("base", "width", "first")}
         return d
 
     def run_device(self, batch, staged: dict | None = None,
@@ -129,11 +210,15 @@ class BatchDecoder:
         """Full device decode. Returns (outputs, out_len, ok) per frame row.
 
         outputs holds np.uint8 rows, or with pull_outputs=False
-        device-resident (tensor, row) handles, the frame checksums then
-        verified on the device and folded into ok. sync=False returns an
-        opaque state with all device work enqueued but not waited on; pass
-        it to _finalize() (or use decode_frames_pipelined) to overlap host
-        framing with device compute."""
+        device-resident handles: (tensor, row) for a single-group frame,
+        its bytes tensor[row, :out_len]; (acc, lane, base) for a chained
+        frame, its bytes acc[lane, base:base + out_len]. In that mode the
+        single-group frames' checksums are verified on the device and
+        folded into ok; chained frames are not hashed on the device (as in
+        the reference). sync=False returns an opaque state with all device
+        work enqueued but not waited on; pass it to _finalize() (or use
+        decode_frames_pipelined) to overlap host framing with device
+        compute."""
         d = staged if staged is not None else self.stage(batch)
         Bf = d["lit_base"].shape[0]
         frame_inert = Bf - 1
@@ -160,53 +245,103 @@ class BatchDecoder:
                            d["seq_dst_frame"], d["seq_dst_off"],
                            d["seq_lit_total"], d["seq_trail_slot"],
                            ll_full, ml_full, of_full, frame_ok)
+        chains = d["chains"]
         with scope("offset_resolution"):
-            offsets, out_len, res_ok = _resolve(
-                ll_full, ml_full, of_full, d["is_real"], d["init_hist"])
+            if chains is None:
+                offsets, out_len, res_ok = _resolve(
+                    ll_full, ml_full, of_full, d["is_real"], d["init_hist"])
+            else:
+                offsets, out_len, res_ok = _resolve_chained(
+                    ll_full, ml_full, of_full, d["is_real"], d["init_hist"],
+                    d["chain_rows"], d["chain_row_cont"])
         ok_dev = frame_ok & res_ok
 
-        rows = d["exec_rows"]
-        rows_l = rows.long()
-        with scope("lz77_execute"):
-            out, exec_ok = execute_lanes(ll_full, ml_full, offsets, lit_full,
-                                         out_len, rows, batch.out_width)
-        ok_rows = ok_dev[rows_l] & exec_ok
+        out = None
+        if d["exec_rows_list"]:
+            rows = d["exec_rows"]
+            rows_l = rows.long()
+            with scope("lz77_execute"):
+                out, exec_ok = execute_lanes(ll_full, ml_full, offsets,
+                                             lit_full, out_len, rows,
+                                             batch.out_width)
+            ok_rows = ok_dev[rows_l] & exec_ok
+            if self.verify_checksums and not pull_outputs:
+                # serving mode never reaches _postprocess's host xxh64:
+                # verify each frame's checksum field on the device
+                with scope("device_checksum"):
+                    skip = d["ck_skip"]
+                    got = xxh64_low32_lanes(out, out_len[rows_l] - skip,
+                                            skip)
+                ok_rows = ok_rows & (~d["ck_has"] | (got == d["ck_exp"]))
+            ok_dev = ok_dev.index_put((rows_l,), ok_rows)
 
-        if self.verify_checksums and not pull_outputs:
-            # serving mode never reaches _postprocess's host xxh64: verify
-            # each frame's checksum field on the device
-            with scope("device_checksum"):
-                skip = d["ck_skip"]
-                got = xxh64_low32_lanes(out, out_len[rows_l] - skip, skip)
-            ok_rows = ok_rows & (~d["ck_has"] | (got == d["ck_exp"]))
-        ok_dev = ok_dev.index_put((rows_l,), ok_rows)
+        done = None
+        if chains is not None:
+            # Stage 3b, chained frames (zstd_tpu/models/batch_decoder.py:
+            # 975-1331): one launch runs every group of every chain, each
+            # chain's history whole in its accumulator row. Not carried
+            # over, since each exists for the TPU's VMEM, Mosaic or call
+            # overheads: the jumbo-group guard and its size floor
+            # (:984-1001), the window-size buckets and the `li` lockstep
+            # chooser with LOCKSTEP_BLOCK_CAP and _NOALIAS (:1016-1122),
+            # the exact-size sync (:1035-1066), the super-group packing and
+            # its rows cache (:1149-1280), and the far-stream pre-gather
+            # (_far_prep, _far_row_totals, _far_gather, :351-409, used at
+            # :1129-1148): the kernel reads far history from the
+            # accumulator itself.
+            plan = d["chain_rows"]
+            base = chains["base"]
+            with scope("lz77_window_execute"):
+                acc = torch.zeros((plan.shape[0], chains["width"]),
+                                  dtype=torch.uint8, device=self.device)
+                if base:
+                    acc[:, :base] = d["chain_prefill"]
+                written, chain_ok = execute_window(
+                    ll_full, ml_full, offsets, lit_full, out_len,
+                    d["row_lit_len"], plan, acc, base, d["chain_hist0"],
+                    d["chain_cap"])
+            # a chain is ok when every group executed and every row's
+            # entropy stages and resolution were
+            chain_ok = chain_ok & ok_dev[plan.long()].all(dim=1)
+            done = (acc, written, chain_ok, base, chains["first"])
 
-        chained = chained_metas(batch)
-        self.host_frames += len(chained)
-        state = (out_len, ok_dev, out, d["exec_rows_list"],
-                 [m.rows[0] for m in chained], frame_inert)
+        self.host_frames += sum(1 for m in batch.metas if m.fallback)
+        state = (out_len, ok_dev, out, d["exec_rows_list"], done,
+                 frame_inert)
         if not sync:
             return state
         return self._finalize(state, pull_outputs)
 
     def _finalize(self, state, pull_outputs: bool = True):
         """Second half of run_device: the single host sync + unpack."""
-        out_len, ok_dev, out, rows, chained_rows, frame_inert = state
-        lens_ok = torch.cat([out_len, ok_dev.to(torch.int32)]).cpu().numpy()
+        out_len, ok_dev, out, rows, chains, frame_inert = state
+        parts = [out_len.long(), ok_dev.long()]
+        if chains is not None:
+            parts += [chains[1], chains[2].long()]
+        host = torch.cat(parts).cpu().numpy()
         Bf = frame_inert + 1
-        out_len_h = lens_ok[:Bf].copy()
-        ok_h = lens_ok[Bf:].astype(bool)
-        for r in chained_rows:
-            ok_h[r] = False  # decoded by the host-oracle fallback
+        out_len_h = host[:Bf].copy()
+        ok_h = host[Bf:2 * Bf].astype(bool)
         outputs = [None] * Bf
-        if pull_outputs:
+        if pull_outputs and rows:
             out_h = out.cpu().numpy()
             for i, lane in enumerate(rows):
                 outputs[lane] = out_h[i]
-        else:
+        elif rows:
             # device-resident (tensor, row) handles: no per-row slicing
             for i, lane in enumerate(rows):
                 outputs[lane] = (out, i)
+        if chains is not None:
+            acc, _, _, base, first = chains
+            C = len(first)
+            written = host[2 * Bf:2 * Bf + C]
+            chain_ok = host[2 * Bf + C:].astype(bool)
+            acc_h = acc.cpu().numpy() if pull_outputs else None
+            for c, r0 in enumerate(first):
+                out_len_h[r0] = written[c]
+                ok_h[r0] = chain_ok[c]
+                outputs[r0] = (acc_h[c, base:base + written[c]]
+                               if pull_outputs else (acc, c, base))
         return (outputs[:frame_inert], out_len_h[:frame_inert],
                 ok_h[:frame_inert])
 

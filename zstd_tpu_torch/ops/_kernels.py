@@ -25,7 +25,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "zstd_tpu_torch")
-NAMES = ("huffman", "sequence", "execute", "xxhash64")
+NAMES = ("huffman", "sequence", "execute", "xxhash64", "execute_window")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -44,6 +44,9 @@ SIGNATURES = {
     "execute": ("zt_execute_lanes",
                 [_P, _P, _P, _LL, _P, _LL, _P, _P, _I, _I, _P, _LL, _P, _P]),
     "xxhash64": ("zt_xxh64_low32_lanes", [_P, _LL, _I, _P, _P, _P, _P]),
+    "execute_window": ("zt_execute_window",
+                       [_P, _P, _P, _LL, _P, _LL, _P, _P, _I, _P, _I, _I, _P,
+                        _LL, _LL, _P, _P, _P, _P, _P]),
 }
 
 _fns = {}

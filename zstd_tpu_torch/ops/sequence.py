@@ -18,7 +18,10 @@ runs the CUDA kernel (csrc/sequence.cu) for CUDA tensors and
     ll <= 35), ends at exactly 0, and the trailing run is >= 0.
 
 `resolve_offsets` is the repeat-offset resolution (sequence_execution.rs:
-59-115) over frame lanes, plain torch on every device.
+59-115) over frame lanes, plain torch on every device: symbolic resolution
+(`resolve_offsets_symbolic`) followed by `apply_hist`. Chained block groups
+compose their histories in between (models/batch_decoder.py,
+_resolve_chained).
 """
 
 import numpy as np
@@ -241,6 +244,54 @@ def _rec_symbols(ll, ofv, is_real):
     return o_t, o_v, trans
 
 
+def resolve_offsets_symbolic(ll, ofv, is_real):
+    """Repeat-offset resolution against a symbolic incoming history.
+
+    ll, ofv (B, S) i32; is_real (B, S) bool. Every resolved offset is a
+    constant or `hist[tag] - val` of the row's incoming history, so rows
+    resolve independently and a chain of block groups composes their
+    histories afterwards (apply_hist, compose_hist).
+
+    Returns (tag (B, S) int8: 0..2 a slot of the incoming history, 3 a
+    constant; val (B, S) i32: the delta, or the constant; trans_tag (B, 3)
+    int8 and trans_val (B, 3) i32: the row's outgoing history as a
+    transform of its incoming one). The values equal
+    zstd_tpu/ops/sequence.py::resolve_offsets_symbolic's (which keeps its
+    tags in int32).
+    """
+    S = ll.shape[1]
+    ll = ll.to(torch.int32)
+    ofv = ofv.to(torch.int32)
+    o_t, o_v, x = _rec_symbols(ll, ofv, is_real)
+    d = 1
+    while d < S:
+        c = _compose(tuple(a[:, :-d] for a in x), tuple(a[:, d:] for a in x))
+        x = tuple(torch.cat([a[:, :d], b], dim=1) for a, b in zip(x, c))
+        d *= 2
+    # the last inclusive column is the row total
+    trans_tag = torch.stack([a[:, -1] for a in x[:3]], dim=1)
+    trans_val = torch.stack([a[:, -1] for a in x[3:]], dim=1)
+    # exclusive prefix: the transform of all records before each record
+    ident = (0, 1, 2, 0, 0, 0)
+    x = tuple(torch.cat([torch.full_like(a[:, :1], k), a[:, :-1]], dim=1)
+              for a, k in zip(x, ident))
+    tag, val = _apply(x[:3], x[3:], o_t, o_v)
+    return tag, val, trans_tag, trans_val
+
+
+def apply_hist(tag, val, hist):
+    """Concrete values of symbols (tag, val) (..., n) against the incoming
+    history `hist` (..., 3): hist[tag] - val, or val where tag == 3."""
+    hist = hist.to(torch.int32)
+    picked = _sel(tag, hist[..., 0:1], hist[..., 1:2], hist[..., 2:3])
+    return torch.where(tag == 3, val, picked - val)
+
+
+def compose_hist(trans_tag, trans_val, hist):
+    """The outgoing history of a row given its incoming history."""
+    return apply_hist(trans_tag, trans_val, hist)
+
+
 def resolve_offsets(ll, ofv, is_real, init_hist):
     """Repeat-offset resolution across frame lanes.
 
@@ -252,22 +303,13 @@ def resolve_offsets(ll, ofv, is_real, init_hist):
     <= 0 (the decoder never emits one: (1 << code) + extra >= 1 unless it
     wrapped at code 31).
     """
-    B, S = ll.shape
-    ll = ll.to(torch.int32)
-    ofv = ofv.to(torch.int32)
-    o_t, o_v, x = _rec_symbols(ll, ofv, is_real)
-    d = 1
-    while d < S:
-        c = _compose(tuple(a[:, :-d] for a in x), tuple(a[:, d:] for a in x))
-        x = tuple(torch.cat([a[:, :d], b], dim=1) for a, b in zip(x, c))
-        d *= 2
-    # exclusive prefix: the transform of all records before each record
-    ident = (0, 1, 2, 0, 0, 0)
-    x = tuple(torch.cat([torch.full_like(a[:, :1], k), a[:, :-1]], dim=1)
-              for a, k in zip(x, ident))
-    tag, val = _apply(x[:3], x[3:], o_t, o_v)
-    hist = init_hist.to(torch.int32)
-    picked = _sel(tag, hist[:, 0:1], hist[:, 1:2], hist[:, 2:3])
-    offsets = torch.where(tag == 3, val, picked - val)
+    tag, val, _, _ = resolve_offsets_symbolic(ll, ofv, is_real)
+    offsets = apply_hist(tag, val, init_hist)
+    return offsets, offsets_ok(offsets, ofv, is_real)
+
+
+def offsets_ok(offsets, ofv, is_real):
+    """(B,) bool: no real record resolves to an offset <= 0 or carries an
+    of_value <= 0."""
     bad = is_real & ((offsets <= 0) | (ofv <= 0))
-    return offsets, ~bad.any(dim=1)
+    return ~bad.any(dim=1)
