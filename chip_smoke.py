@@ -36,6 +36,19 @@ phase raises on failure, so any failure exits non-zero:
      body) decoded and timed; how many resolved matches reach past 8 MiB
  10. the window kernel at the chained path's shapes on its inputs: bit-equal
      to its plain version, both timed, beside its bound
+ 11. entropy path: bench.py's encode scenario (make_corpus(8, seed=5), 64
+     frames of 128 KiB) through BatchEncoder() with the host matcher;
+     every frame equal to compress_to_vec's, fse_encode launched
+ 12. device encoder, the main path of the encode slice: the same corpus
+     through BatchEncoder(matcher=DeviceMatcher()); every frame decoded
+     exact by the oracle and by BatchDecoder() on the card (host_frames
+     0), parse and fse_encode launched in the counted run; ratio beside
+     the host matcher's; 3 timed runs, MB/s, the host/device split
+     (last_stats) and the device ms of its trace scopes (torch.profiler)
+ 13. CLI: `python -m zstd_tpu_torch.cli compress --gpu`, then `decompress
+     --gpu`, as subprocesses on one 8 MiB frame (chained on decode); exact
+ 14. the parse and fse_encode kernels at phase 12's shapes on its inputs:
+     bit-equal to their plain versions, both timed, beside their bounds
 
 The line before the last is the `kernels` JSON object; the last line is
 {"ok": true, "device": {...}}.
@@ -430,10 +443,10 @@ STAGES = ("huffman_decode", "sequence_decode", "offset_resolution",
           "lz77_execute", "device_checksum", "lz77_window_execute")
 
 
-def profiled_stages(dec, batch, staged, runs: int):
-    """Per-stage device ms per serving run, from a torch.profiler capture
-    of run_device's trace scopes, and the device's busy ms per run (the
-    sum of every kernel's and copy's device time)."""
+def profiled_scopes(fn, names, runs: int):
+    """Device ms per run of each trace scope in `names`, from a
+    torch.profiler capture of `runs` calls of fn(), and the device's busy
+    ms per run (the sum of every kernel's and copy's device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -441,12 +454,12 @@ def profiled_stages(dec, batch, staged, runs: int):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
-            dec.run_device(batch, staged, pull_outputs=False)
+            fn()
         torch.cuda.synchronize()
     # a scope's range on the device (the profiler's GPU annotation), else
     # the device time of the kernels it links to the scope on the host
-    span = dict.fromkeys(STAGES, 0.0)
-    host = dict.fromkeys(STAGES, 0.0)
+    span = dict.fromkeys(names, 0.0)
+    host = dict.fromkeys(names, 0.0)
     busy = 0.0  # kernels and copies; a scope's device range is not one
     for ev in prof.events():
         if ev.name in host and ev.device_type == DeviceType.CPU:
@@ -455,8 +468,16 @@ def profiled_stages(dec, batch, staged, runs: int):
             span[ev.name] += ev.time_range.elapsed_us()
         elif ev.device_type != DeviceType.CPU:
             busy += ev.time_range.elapsed_us()
-    stage_ms = {k: (span[k] or host[k]) / runs / 1e3 for k in STAGES}
+    stage_ms = {k: (span[k] or host[k]) / runs / 1e3 for k in names}
     return stage_ms, busy / runs / 1e3
+
+
+def profiled_stages(dec, batch, staged, runs: int):
+    """Per-stage device ms per serving run (run_device's trace scopes) and
+    the device's busy ms per run."""
+    return profiled_scopes(
+        lambda: dec.run_device(batch, staged, pull_outputs=False), STAGES,
+        runs)
 
 
 def phase_serving(dec, batch, staged, n_bytes, label: str = "serving",
@@ -781,6 +802,288 @@ def phase_window_kernel(staged, launches):
             "library_ms": None}
 
 
+# --- device encoder ----------------------------------------------------------
+
+ENCODE_SCOPES = ("find_candidates", "parse", "huffman_pack", "fse_encode")
+
+
+def _encode_counters():
+    from zstd_tpu_torch.ops import fse_encode, match_finder
+
+    return {"parse": match_finder.parse_lanes,
+            "fse_encode": fse_encode.encode_sequences_packed}
+
+
+def phase_encode_host():
+    """11. The entropy path: bench.py's encode scenario (64 frames of
+    128 KiB) through BatchEncoder() with the host matcher; every frame
+    equal to the host encoder's."""
+    from zstd_tpu_torch.common.config import CompressionLevel
+    from zstd_tpu_torch.encoding.frame_enc import compress_to_vec
+    from zstd_tpu_torch.models.batch_encoder import BatchEncoder
+
+    payloads = make_corpus(8, seed=5)
+    n_bytes = sum(map(len, payloads))
+    enc = BatchEncoder()
+    counters = _encode_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    frames = enc.compress_frames(payloads)
+    t = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    need(len(frames) == len(payloads) and all(
+        f == compress_to_vec(p, CompressionLevel.FASTEST)
+        for f, p in zip(frames, payloads)),
+        "entropy path: a frame differs from the host encoder's")
+    need(launches["fse_encode"] > 0, "entropy path: fse_encode not launched")
+    ratio = sum(map(len, frames)) / n_bytes
+    say(f"entropy path: {len(frames)} frames, {n_bytes} bytes, ratio "
+        f"{ratio:.4f}, every frame equal to compress_to_vec; "
+        f"{t:.3f} s ({n_bytes / t / 1e6:.3f} MB/s), split "
+        f"{json.dumps(enc.last_stats)}, launches {launches}")
+    return payloads, ratio
+
+
+def _recorded(module, name, calls: list):
+    """Route module.name through a wrapper that appends each call's
+    (arguments, result) to `calls`; returns the function that restores it.
+    Only callers that look the name up in `module` see the wrapper."""
+    fn = getattr(module, name)
+
+    def rec(*args):
+        out = fn(*args)
+        calls.append((args, out))
+        return out
+
+    setattr(module, name, rec)
+    return lambda: setattr(module, name, fn)
+
+
+def phase_encode_device(payloads, host_ratio):
+    """12. The device-matched main path: BatchEncoder(matcher=
+    DeviceMatcher()) on the same corpus; every frame decoded by the oracle
+    and by BatchDecoder() on the card; a warm-up (the counted run, whose
+    kernel arguments are kept for phase 14), 3 timed runs and the scopes'
+    device times."""
+    from zstd_tpu_torch.encoding.device_matcher import DeviceMatcher
+    from zstd_tpu_torch.models import batch_encoder
+    from zstd_tpu_torch.models.batch_decoder import BatchDecoder
+    from zstd_tpu_torch.ops import match_finder
+    from zstd_tpu_torch.oracle import decode_all
+
+    n_bytes = sum(map(len, payloads))
+    enc = batch_encoder.BatchEncoder(matcher=DeviceMatcher())
+    counters = _encode_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    # the parse's arguments are find_candidates' (its kernel wrapper counts
+    # its launches through its own module name, so it is not wrapped)
+    calls = {"parse": [], "fse_encode": []}
+    restore = [_recorded(match_finder, "find_candidates", calls["parse"]),
+               _recorded(batch_encoder, "encode_sequences_packed",
+                         calls["fse_encode"])]
+    frames = enc.compress_frames(payloads)
+    for undo in restore:
+        undo()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for k in ("parse", "fse_encode"):
+        need(launches[k] > 0, f"device encode: kernel {k} was not launched")
+        need(len(calls[k]) == 1,
+             f"device encode: {k} called {len(calls[k])} times, expected 1")
+    for i, (f, p) in enumerate(zip(frames, payloads)):
+        need(decode_all(f) == p, f"device encode: oracle frame {i} differs")
+    dec = BatchDecoder()
+    need(dec.decode_frames(frames) == payloads,
+         "device encode: BatchDecoder's bytes differ")
+    need(dec.host_frames == 0, f"device encode: {dec.host_frames} host frames")
+    ratio = sum(map(len, frames)) / n_bytes
+    say(f"device encode: {len(frames)} frames byte-exact through the oracle "
+        f"and BatchDecoder() on the card, host_frames 0; ratio {ratio:.4f} "
+        f"(host matcher {host_ratio:.4f}); launches {launches}")
+
+    times, stats = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = enc.compress_frames(payloads)
+        times.append(time.perf_counter() - t0)
+        stats.append({**enc.last_stats, **{
+            f"match_{k}": v for k, v in enc.matcher.last_stats.items()}})
+        need(again == frames, "device encode: a timed run's frames differ")
+    t = sum(times) / len(times)
+    split = {k: sum(s[k] for s in stats) / len(stats) for k in stats[0]}
+    say(f"device encode: 3 runs, mean {t:.4f} s, {n_bytes / t / 1e6:.4f} MB/s"
+        f", split (mean s; match_device_s and match_records_s are parts of "
+        f"match_s) {json.dumps(split)}")
+    scope_ms, busy_ms = profiled_scopes(
+        lambda: enc.compress_frames(payloads), ENCODE_SCOPES, runs=1)
+    if busy_ms == 0:
+        say("device encode scopes: the profiler saw no device time; "
+            "not measured")
+    else:
+        say(f"device encode scopes (device ms per run, torch.profiler, 1 "
+            f"run): {json.dumps(scope_ms)}; device busy {busy_ms:.3f} ms "
+            f"of {t * 1e3:.3f} ms wall, idle share "
+            f"{1 - busy_ms / (t * 1e3):.4f}")
+    (data, n_valid), (cand, lcp) = calls["parse"][0]
+    return launches, {"parse": (data, cand, lcp, n_valid),
+                      "fse_encode": calls["fse_encode"][0][0]}
+
+
+def phase_cli():
+    """13. `python -m zstd_tpu_torch.cli compress --gpu` then `decompress
+    --gpu` on one 8 MiB frame (its decode takes the chained path)."""
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    data = b"".join(make_corpus(8, seed=3))
+    env = {**os.environ, "PYTHONPATH": root}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.bin")
+        with open(src, "wb") as f:
+            f.write(data)
+        t = {}
+        for cmd, args in (("compress", [src, src + ".zst"]),
+                          ("decompress", [src + ".zst", src + ".out"])):
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "zstd_tpu_torch.cli", cmd, *args,
+                 "--gpu"], cwd=root, env=env, capture_output=True,
+                text=True, timeout=600)
+            t[cmd] = time.perf_counter() - t0
+            need(res.returncode == 0,
+                 f"cli {cmd} --gpu exited {res.returncode}: {res.stderr}")
+        with open(src + ".out", "rb") as f:
+            need(f.read() == data, "cli: decompressed bytes differ")
+        n_z = os.path.getsize(src + ".zst")
+    say(f"cli: compress --gpu {t['compress']:.2f} s, decompress --gpu "
+        f"{t['decompress']:.2f} s (each a fresh process), {len(data)} bytes "
+        f"-> {n_z} -> {len(data)} exact")
+
+
+def encode_cases(args):
+    """(setup, call, kernel, plain) of the parse and fse_encode kernels on
+    the arguments phase 12's counted run gave them."""
+    from zstd_tpu_torch.ops import bitpack, fse_encode, match_finder
+
+    def call_parse(fn, _):
+        return list(fn(*args["parse"]))
+
+    def call_fse(fn, _):
+        return list(fn(*args["fse_encode"]))
+
+    def fse_plain(*a):
+        return bitpack.pack_bits_lanes(
+            *fse_encode.encode_sequence_lanes_plain(*a[:-1]), a[-1])
+
+    return {
+        "parse": (list, call_parse, match_finder.parse_lanes,
+                  match_finder.parse_lanes_plain),
+        "fse_encode": (list, call_fse, fse_encode.encode_sequences_packed,
+                       fse_plain),
+    }
+
+
+def _parse_work(n_valid, ll, ml, nseq, anchor):
+    """(positions, extended) of the greedy walk, replayed from its records:
+    the positions whose candidate and lcp it reads, and the bytes it
+    compares past an 8-byte lcp. A literal run of length r costs the skip
+    rule's steps t_k < r (t_0 = 0, t_k+1 = t_k + 1 + (t_k >> 8)), a match
+    one more, and the trailing run from anchor to n_valid its steps (none
+    when the lane stopped at MAX_SEQS). A match longer than 8 had lcp 8
+    and compared its length past 8."""
+    from zstd_tpu_torch.ops.match_finder import MAX_SEQS
+
+    nv = n_valid.cpu().numpy().astype(np.int64)
+    ns = nseq.cpu().numpy().astype(np.int64)
+    rest = np.where(ns < MAX_SEQS, nv - anchor.cpu().numpy(), 0)
+    steps = [0]
+    while steps[-1] < max(int(nv.max()), 1):
+        steps.append(steps[-1] + 1 + (steps[-1] >> 8))
+    steps = np.asarray(steps)
+    live = np.arange(ll.shape[1])[None, :] < ns[:, None]
+    runs = ll.cpu().numpy()[live]
+    lengths = ml.cpu().numpy()[live].astype(np.int64)
+    positions = int(np.searchsorted(steps, runs).sum() + live.sum()
+                    + np.searchsorted(steps, rest).sum())
+    return positions, int(np.clip(lengths - 8, 0, None).sum())
+
+
+def _encode_bounds(args, outputs):
+    """Least time of each encode kernel on this run's data. parse reads the
+    candidate and lcp (8 bytes) of each position the walk visits, two data
+    bytes per byte a match extension compares and n_valid, and writes 12
+    bytes per record and nseq and anchor; operations, one per position and
+    per compared byte. fse_encode reads 12 bytes per sequence, each lane's
+    nseq and logs and each of its non-RLE streams' tables (next states at
+    u16, 1 << log of them; deltaNbBits and deltaFindState at 4 bytes for
+    each code of the stream's alphabet) and writes the output words and
+    total; operations, ~40 per sequence."""
+    from zstd_tpu_torch.common import constants as C
+
+    data, _, _, n_valid = args["parse"]
+    ll, ml, _, nseq, anchor = outputs["parse"]
+    B = data.shape[0]
+    positions, extended = _parse_work(n_valid, ll, ml, nseq, anchor)
+    records = int(nseq.long().sum())
+    parse_bytes = 8 * positions + 2 * extended + 12 * records + 12 * B
+    arrays = args["fse_encode"]
+    seq_lanes = arrays[0].shape[0]
+    n_seq = int(arrays[3].long().sum())
+    logs = arrays[7].cpu().numpy().astype(np.int64)  # (B, 3): ll, ml, of
+    alphabet = np.array([C.LL_MAX_CODE + 1, C.ML_MAX_CODE + 1, 32])
+    used = logs > 0                                  # log 0: an RLE stream
+    tables = int(((2 << logs) * used).sum() + (8 * alphabet * used).sum())
+    total = outputs["fse_encode"][1].long()
+    out_bytes = int(((total + 31) // 32).sum()) * 4
+    fse_bytes = 12 * n_seq + tables + out_bytes + 20 * seq_lanes
+    out = {}
+    for k, nbytes, ops in (("parse", parse_bytes, positions + extended),
+                           ("fse_encode", fse_bytes, 40 * n_seq)):
+        tb = nbytes / H100_BYTES_PER_S * 1e3
+        to = ops / H100_OPS_PER_S * 1e3
+        out[k] = (max(tb, to), "bytes" if tb >= to else "operations")
+    return out, dict(lanes=B, valid_bytes=int(n_valid.long().sum()),
+                     visited_positions=positions, extended_bytes=extended,
+                     records=records, sequence_lanes=seq_lanes,
+                     sequences=n_seq, S=int(arrays[0].shape[1]),
+                     table_bytes=tables, parse_bound_bytes=parse_bytes,
+                     fse_bound_bytes=fse_bytes)
+
+
+def phase_encode_kernels(args, launches):
+    """14. Both encode kernels on the arguments phase 12's counted run gave
+    them: bit-equal to their plain versions, both timed, beside their
+    bounds."""
+    import torch
+
+    cases = encode_cases(args)
+    outputs = {k: call(kern, setup())
+               for k, (setup, call, kern, _) in cases.items()}
+    bounds, shape = _encode_bounds(args, outputs)
+    say(f"encode kernels' inputs: {json.dumps(shape)}")
+    replaces = {"parse": "zstd_tpu/ops/match_finder.py:98",
+                "fse_encode": "zstd_tpu/ops/fse_encode.py:45"}
+    rows = []
+    for name, (setup, call, kern, plain) in cases.items():
+        err = compare(name, setup, call, kern, plain)
+        ms = cuda_ms(setup, call, kern, reps=5)
+        plain_ms = cuda_ms(setup, call, plain, reps=1)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"zstd_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": err, "ms": round(ms, 6),
+            "plain_ms": round(plain_ms, 6),
+            "bound_ms": round(bounds[name][0], 6),
+            "bound_by": bounds[name][1], "library_ms": None})
+        say(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
+            f"{bounds[name][0]:.4f} ms by {bounds[name][1]}), max abs err "
+            f"{err} (tolerance 0: integer codec)")
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -808,6 +1111,11 @@ def main() -> int:
     phase_serving(dec, batch, staged, n_bytes, label="chained serving")
     phase_far()
     rows.append(phase_window_kernel(staged, launches))
+    del dec, batch, staged
+    payloads, host_ratio = phase_encode_host()
+    launches, args = phase_encode_device(payloads, host_ratio)
+    phase_cli()
+    rows += phase_encode_kernels(args, launches)
     say(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,11 @@ The inputs are real batches framed from the package's own encoder, a
 corrupted lane, hand-made execution regimes and random chained frames for
 the windowed executor (near and far caps, dictionary prefills, matches
 across group boundaries, bad offsets); the decoder runs chained frames and
-the committed dictionary frames of zstd_tpu_torch/testdata. This file
-imports neither
-jax nor zstandard, so on the GPU machine it runs with:
+the committed dictionary frames of zstd_tpu_torch/testdata. The encoder's
+kernels (greedy parse, FSE encode) run on seeded random blocks and on the
+sequence lanes of real payloads, RLE-table and empty lanes included, and
+the encoder on the card is held to the host encoder's frames. This file
+imports neither jax nor zstandard, so on the GPU machine it runs with:
 
     python -m pytest --noconftest -p no:cacheprovider -q \
         tests/test_torch_kernels_cuda.py
@@ -20,12 +22,20 @@ import torch
 
 from zstd_tpu_torch.common.config import CodecConfig, CompressionLevel
 from zstd_tpu_torch.encoding.frame_enc import compress_to_vec
+from zstd_tpu_torch.encoding.device_matcher import DeviceMatcher
 from zstd_tpu_torch.models.batch_decoder import BatchDecoder
+from zstd_tpu_torch.models.batch_encoder import BatchEncoder
 from zstd_tpu_torch.ops import _kernels
+from zstd_tpu_torch.ops.bitpack import pack_bits_lanes
 from zstd_tpu_torch.ops.execute import execute_lanes, execute_lanes_plain
 from zstd_tpu_torch.ops.execute_window import (execute_window,
                                                execute_window_plain)
+from zstd_tpu_torch.ops.fse_encode import (encode_sequence_lanes_plain,
+                                           encode_sequences_packed,
+                                           out_words_for, seq_lane_arrays)
 from zstd_tpu_torch.ops.huffman import huffman_lanes, huffman_lanes_plain
+from zstd_tpu_torch.ops.match_finder import (find_candidates, parse_lanes,
+                                             parse_lanes_plain)
 from zstd_tpu_torch.ops.sequence import sequence_lanes, sequence_lanes_plain
 from zstd_tpu_torch.ops.xxhash64 import (xxh64_low32_lanes,
                                          xxh64_low32_lanes_plain)
@@ -410,3 +420,104 @@ def test_decoder_on_cuda_chained(cuda):
         n = int(out_len[m.rows[0]])
         assert bool(ok[m.rows[0]]) and n == len(p)
         assert acc[lane, base:base + n].cpu().numpy().tobytes() == p
+
+
+def random_blocks(seed: int, B: int = 18, L: int = 8192):
+    """Seeded blocks for the parse: text, random bytes, long repeats (the
+    extension past 8 bytes, up to the valid end), RLE-ish, a short lane,
+    an empty lane and a lane one byte long."""
+    rng = np.random.default_rng(seed)
+    words = [b"alpha", b"beta", b"gamma", b"delta", b"epsilon"]
+    blocks = []
+    for i in range(B):
+        kind = i % 6
+        if kind == 0:
+            b = b" ".join(words[j] for j in rng.integers(0, 5, L // 5))
+        elif kind == 1:
+            b = rng.integers(0, 256, L, dtype=np.uint8).tobytes()
+        elif kind == 2:
+            unit = rng.integers(0, 256, int(rng.integers(16, 700)),
+                                dtype=np.uint8).tobytes()
+            b = unit * (L // len(unit) + 1)
+        elif kind == 3:
+            b = bytes([int(rng.integers(0, 4))]) * int(rng.integers(100, L))
+        elif kind == 4:
+            b = b"ab" * int(rng.integers(1, 200)) + rng.integers(
+                0, 256, 50, dtype=np.uint8).tobytes()
+        else:
+            b = [b"", b"q", b"xyzxyzxyz"][i // 6]
+        blocks.append(b[:L])
+    data = np.zeros((B, L), np.uint8)
+    nv = np.zeros(B, np.int32)
+    for i, b in enumerate(blocks):
+        data[i, :len(b)] = np.frombuffer(b, np.uint8)
+        nv[i] = len(b)
+    return data, nv
+
+
+@pytest.mark.parametrize("seed", [31, 32])
+def test_parse_kernel_matches_plain(cuda, seed):
+    data, nv = random_blocks(seed)
+    d = torch.from_numpy(data).to(cuda)
+    n = torch.from_numpy(nv).to(cuda)
+    cand, lcp = find_candidates(d, n)
+    before = parse_lanes.launches
+    got = parse_lanes(d, cand, lcp, n)
+    exp = parse_lanes_plain(d, cand, lcp, n)
+    torch.cuda.synchronize()
+    assert parse_lanes.launches == before + 1
+    for a, b in zip(got, exp):
+        assert torch.equal(a, b)
+    assert int(got[1].max()) > 136  # an extension of whole 128-byte steps
+
+
+def _seq_lanes(device, payloads):
+    """The sequence lanes the encoder plans for `payloads` (host matcher)."""
+    enc = BatchEncoder(device=device)
+    seq = []
+    for p in payloads:
+        enc._plan_frame(p, [], seq)
+    return seq
+
+
+def test_fse_encode_kernel_matches_plain(cuda):
+    payloads = _payloads(6, 40 << 10, seed=8) + [
+        b"ab" * 1000,                                  # one sequence: RLE
+        b"".join(b"key%04d=" % (i % 97) + b"v" * 9 for i in range(3000))]
+    lanes = _seq_lanes(cuda, payloads)
+    assert any(0 in l.logs for l in lanes)             # an RLE-table stream
+    arrays = seq_lane_arrays(lanes, cuda)
+    arrays[3][1] = 0                                   # an nseq == 0 lane
+    ow = out_words_for(arrays[0].shape[1])
+    before = encode_sequences_packed.launches
+    words, total = encode_sequences_packed(*arrays, ow)
+    pw, pt = pack_bits_lanes(*encode_sequence_lanes_plain(*arrays), ow)
+    torch.cuda.synchronize()
+    assert encode_sequences_packed.launches == before + 1
+    assert torch.equal(words, pw) and torch.equal(total, pt)
+    assert int(total[1]) == 0 and not bool(words[1].any())
+
+
+def test_batch_encoder_on_cuda_equals_host_encoder(cuda):
+    payloads = _payloads(6, 100 << 10, seed=9) + [b"", b"ab",
+                                                   b"z" * 50000]
+    before = encode_sequences_packed.launches
+    frames = BatchEncoder().compress_frames(payloads)
+    assert encode_sequences_packed.launches == before + 1
+    for p, z in zip(payloads, frames):
+        assert z == compress_to_vec(p, CompressionLevel.FASTEST)
+
+
+def test_device_matched_frames_on_cuda(cuda):
+    """The device-matched frames on the card equal the same encoder's
+    frames on the CPU (plain versions), and decode on the card."""
+    payloads = _payloads(6, 100 << 10, seed=10) + [b"", b"xy"]
+    launches = (parse_lanes.launches, encode_sequences_packed.launches)
+    frames = BatchEncoder(matcher=DeviceMatcher()).compress_frames(payloads)
+    assert parse_lanes.launches == launches[0] + 1
+    assert encode_sequences_packed.launches == launches[1] + 1
+    ref = BatchEncoder(matcher=DeviceMatcher(device="cpu"),
+                       device="cpu").compress_frames(payloads)
+    assert frames == ref
+    dec = BatchDecoder(device=cuda)
+    assert dec.decode_frames(frames) == payloads and dec.host_frames == 0

@@ -1,13 +1,20 @@
-"""zstd_tpu_torch: the Zstandard (RFC 8878) batched decoder on PyTorch + CUDA.
+"""zstd_tpu_torch: the Zstandard (RFC 8878) batched codec on PyTorch + CUDA.
 
 A port of `zstd_tpu` to one NVIDIA H100: the host layers (oracle, framer,
-native runtime, host encoder) are carried over unchanged, and every device
-stage of the batched single-group decode runs as a hand-written CUDA kernel
-(`csrc/*.cu`) with a plain torch version beside it for CPU tensors.
+native runtime, host encoder) are carried over unchanged. Each stage that
+is a Pallas kernel in the reference (Huffman and sequence decode, LZ77
+execute, windowed execute, greedy parse), the xxh64 checksum and the FSE
+sequence encode run as hand-written CUDA kernels (`csrc/*.cu`), each with a
+plain torch version beside it for CPU tensors. The stages that are XLA in
+the reference stay plain torch on the card too: offset resolution, the
+match finder's candidates (`find_candidates`) and the Huffman bit pack
+(`ops/bitpack.pack_bits_lanes`).
 
   - decoding: FrameDecoder, StreamingDecoder, decode_all (host oracle)
   - encoding: compress, compress_to_vec, FrameCompressor (host encoder)
-  - models: BatchDecoder, decode_all_device (the device pipeline)
+  - models: BatchDecoder, decode_all_device (the device decode pipeline),
+    BatchEncoder (the device encoder; with encoding.device_matcher's
+    DeviceMatcher the match finding runs on the device too)
 """
 
 from zstd_tpu_torch.common import constants
@@ -32,7 +39,7 @@ __all__ = [
     "Dictionary", "DEFAULT_MAX_WINDOW_SIZE",
     "decode_all", "decode_all_to_vec", "decode_frame",
     "CompressionLevel", "compress", "compress_to_vec", "FrameCompressor",
-    "BatchDecoder", "decode_all_device",
+    "BatchDecoder", "decode_all_device", "BatchEncoder",
 ]
 
 _LAZY = {
@@ -42,6 +49,7 @@ _LAZY = {
     "BatchDecoder": ("zstd_tpu_torch.models.batch_decoder", "BatchDecoder"),
     "decode_all_device": ("zstd_tpu_torch.models.splitter",
                           "decode_all_device"),
+    "BatchEncoder": ("zstd_tpu_torch.models.batch_encoder", "BatchEncoder"),
 }
 
 

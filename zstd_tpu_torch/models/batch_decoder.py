@@ -57,12 +57,14 @@ _FRAME = ("lit_base", "ll_base", "ml_base", "of_base", "is_real")
 
 
 def resolve_device(device=None) -> torch.device:
-    """`None` means the GPU; raises when the requested device is absent."""
+    """`None` means the GPU; raises when the requested device is absent.
+    The decoder, the encoder, the device matcher and the CLI's --gpu paths
+    all resolve their device here."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "BatchDecoder: no CUDA device available (pass device='cpu' to "
-            "run the plain torch versions on the host)")
+            "no CUDA device available (pass device='cpu' to run the plain "
+            "torch versions on the host)")
     return dev
 
 

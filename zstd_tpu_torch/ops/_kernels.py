@@ -25,7 +25,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "zstd_tpu_torch")
-NAMES = ("huffman", "sequence", "execute", "xxhash64", "execute_window")
+NAMES = ("huffman", "sequence", "execute", "xxhash64", "execute_window",
+         "parse", "fse_encode")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -47,6 +48,11 @@ SIGNATURES = {
     "execute_window": ("zt_execute_window",
                        [_P, _P, _P, _LL, _P, _LL, _P, _P, _I, _P, _I, _I, _P,
                         _LL, _LL, _P, _P, _P, _P, _P]),
+    "parse": ("zt_parse_lanes",
+              [_P, _LL, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P]),
+    "fse_encode": ("zt_fse_encode",
+                   [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _LL, _P,
+                    _P]),
 }
 
 _fns = {}

@@ -8,7 +8,8 @@ Two implementations:
     fast enough for GB-scale host verification.
   - streaming `Xxh64` with update(), for the streaming decoder drain path.
 
-A jax version for on-device checksumming lives in zstd_tpu/ops/xxhash_jax.py.
+The device checksum (a CUDA kernel per lane of decoded bytes, with a plain
+torch twin) lives in zstd_tpu_torch/ops/xxhash64.py.
 """
 
 import numpy as np
