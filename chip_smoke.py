@@ -34,8 +34,10 @@ phase raises on failure, so any failure exits non-zero:
      runs and per-stage device times, as in 5; the accumulator's size
   9. far window: one 12 MiB frame at window_log 24 (bench.py's bigwindow
      body) decoded and timed; how many resolved matches reach past 8 MiB
- 10. the window kernel at the chained path's shapes on its inputs: bit-equal
-     to its plain version, both timed, beside its bound
+ 10. the window kernel at the chained path's shapes on its inputs, and on
+     the far frame's (one chain, cap the real window): bit-equal to its
+     plain version, both timed, beside its bound; its jump rounds, CUDA
+     launches per call and scratch bytes
  11. entropy path: bench.py's encode scenario (make_corpus(8, seed=5), 64
      frames of 128 KiB) through BatchEncoder() with the host matcher;
      every frame equal to compress_to_vec's, fse_encode launched
@@ -758,6 +760,9 @@ def phase_far():
     say(f"far: window {m.window}, {len(m.rows)} block groups, "
         f"{len(body)} bytes exact, host_frames 0")
     phase_serving(dec, batch, d, len(body), label="far serving", runs=3)
+    need(d["chain_cap"].tolist() == [m.window],
+         "far: the chain's cap is not the real window")
+    return d
 
 
 def _window_bound(d, inputs, written):
@@ -779,20 +784,68 @@ def _window_bound(d, inputs, written):
     return max(tb, to), "bytes" if tb >= to else "operations"
 
 
-def phase_window_kernel(staged, launches):
+WINDOW_PHASES = ("validate", "chains", "seed", "jump", "gather")
+
+
+def window_phases(setup, call, kern):
+    """Device ms of each phase of one window kernel call: a torch.profiler
+    capture of two calls, of which the second is read (the kernels after
+    the first call's gather; the tracer can miss a capture's first
+    kernels), kernels matched by name; {} if it saw none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            call(kern, setup())
+            torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type != DeviceType.CPU
+                  and any(f"{k}_kernel" in e.name for k in WINDOW_PHASES)),
+                 key=lambda e: e.time_range.start)
+    first = [i for i, e in enumerate(evs) if "gather_kernel" in e.name]
+    ms = dict.fromkeys(WINDOW_PHASES, 0.0)
+    for e in evs[first[0] + 1:] if len(first) == 2 else []:
+        for k in WINDOW_PHASES:
+            if f"{k}_kernel" in e.name:
+                ms[k] += e.time_range.elapsed_us() / 1e3
+    return ms if any(ms.values()) else {}
+
+
+def _window_run(label, staged):
+    """The window kernel on a staged chained batch: bit-equal to its plain
+    version, its design's counts for one call, both timed, its bound."""
     import torch
 
+    from zstd_tpu_torch.ops import execute_window as ew
+
     case, inputs = window_case(staged)
-    err = compare("execute_window", *case)
+    err = compare(f"execute_window ({label})", *case)
     setup, call, kern, plain = case
     written = call(kern, setup())[1]
+    fn = ew.execute_window
+    rounds = ew.rounds_used()
     bound, bound_by = _window_bound(staged, inputs, written)
     ms = cuda_ms(setup, call, kern, reps=3)
     plain_ms = cuda_ms(setup, call, plain, reps=1)
-    say(f"kernel execute_window: {ms:.4f} ms (plain {plain_ms:.2f} ms, "
-        f"bound {bound:.4f} ms by {bound_by}), max abs err {err} "
-        f"(tolerance 0: integer codec), {int(written.sum())} bytes")
+    phases = window_phases(setup, call, kern)
+    say(f"kernel execute_window, {label}: phases (device ms, torch.profiler,"
+        f" 1 call) " + (json.dumps(phases) if phases else "not measured"))
+    say(f"kernel execute_window, {label}: {ms:.4f} ms (plain {plain_ms:.2f} "
+        f"ms, bound {bound:.4f} ms by {bound_by}), max abs err {err} "
+        f"(tolerance 0: integer codec), {int(written.sum())} bytes; "
+        f"{rounds} jump rounds of {fn.last_cuda_launches - 4}, "
+        f"{fn.last_cuda_launches} CUDA launches per call, "
+        f"{fn.last_scratch_bytes} scratch bytes")
     torch.cuda.empty_cache()
+    return err, ms, plain_ms, bound, bound_by
+
+
+def phase_window_kernel(staged, launches, far_staged):
+    far_err = _window_run("far frame", far_staged)[0]
+    err, ms, plain_ms, bound, bound_by = _window_run("chained path", staged)
+    err = max(err, far_err)
     return {"name": "execute_window", "route": "cuda",
             "source": "zstd_tpu_torch/csrc/execute_window.cu",
             "replaces": "zstd_tpu/ops/pallas_execute.py:1076",
@@ -1109,9 +1162,9 @@ def main() -> int:
     phase_chained_small()
     dec, batch, staged, n_bytes, launches = phase_chained()
     phase_serving(dec, batch, staged, n_bytes, label="chained serving")
-    phase_far()
-    rows.append(phase_window_kernel(staged, launches))
-    del dec, batch, staged
+    far = phase_far()
+    rows.append(phase_window_kernel(staged, launches, far))
+    del dec, batch, staged, far
     payloads, host_ratio = phase_encode_host()
     launches, args = phase_encode_device(payloads, host_ratio)
     phase_cli()

@@ -14,7 +14,11 @@ everything is compared exactly:
   - the windowed executor's plain version (execute_window_plain) against
     the byte loop of random chains, against zstd_tpu's execute_window_xla
     (near and far forms) and against execute_window_pallas in interpret
-    mode (near, far and dictionary), each driven group by group;
+    mode (near, far and dictionary), each driven group by group; and the
+    hand-made chains the GPU tests give the kernel (a ~60,000-byte-deep
+    chain, matches at the exact edge of their reach and one byte past it,
+    a broken middle group, prefill-only sources) through the plain
+    version, a byte loop and execute_window_xla;
   - the whole slice: BatchDecoder(device="cpu") on near, far, dictionary,
     mixed near+far and corrupted chained frames beside single-group ones,
     against zstd_tpu's BatchDecoder, the host oracle and libzstd, with no
@@ -33,7 +37,7 @@ import zstandard
 
 from test_torch_framer import _text as vocab_text
 from test_torch_framer import mixed_frames
-from test_torch_kernels_cuda import random_chains, window_args
+from test_torch_kernels_cuda import WINDOW_SETS, random_chains, window_args
 from zstd_tpu.models import batch_decoder as ref_bd
 from zstd_tpu.models.framer import Framer as RefFramer
 from zstd_tpu.ops import sequence as ref_seq
@@ -393,6 +397,31 @@ def test_window_plain_matches_pallas_interpret():
     assert np.array_equal(got[0], ref[0])
     assert got[1:] == ref[1:]
     assert got[2] == [True, False, False, True]
+
+
+EDGE_OK = {"deep": [True], "prefill": [True, True],
+           "reach": [True, False, True, False, True, False, False]}
+
+
+@pytest.mark.parametrize("name", sorted(WINDOW_SETS))
+def test_window_plain_matches_byte_loop_on_edge_chains(name):
+    inputs, exp = WINDOW_SETS[name]()
+    acc, written, ok = _plain(inputs)
+    assert np.array_equal(acc, exp["acc"])
+    assert written == exp["written"] and ok == exp["ok"] == EDGE_OK[name]
+    if name == "reach":
+        # chains 1 and 5 stop in their first group, 3 and 6 in their second
+        assert [written[i] for i in (1, 3, 5, 6)] == [0, 100, 0, 24]
+    if name == "deep":
+        assert written == [240004]
+
+
+@pytest.mark.parametrize("name", sorted(WINDOW_SETS))
+def test_window_byte_loop_matches_xla_on_edge_chains(name):
+    inputs, exp = WINDOW_SETS[name]()
+    acc, written, ok = _drive(inputs, _xla_step(inputs, far=True))
+    assert np.array_equal(acc, exp["acc"])
+    assert written == exp["written"] and ok == exp["ok"]
 
 
 # ---- the whole slice --------------------------------------------------------

@@ -9,7 +9,10 @@ across group boundaries, bad offsets); the decoder runs chained frames and
 the committed dictionary frames of zstd_tpu_torch/testdata. The encoder's
 kernels (greedy parse, FSE encode) run on seeded random blocks and on the
 sequence lanes of real payloads, RLE-table and empty lanes included, and
-the encoder on the card is held to the host encoder's frames. This file
+the encoder on the card is held to the host encoder's frames. The window
+kernel also runs hand-made chains (a ~60,000-byte-deep chain, matches at
+the exact edge of their reach and one byte past it, a broken middle group,
+prefill-only sources) and its 64-bit pointers on small inputs. This file
 imports neither jax nor zstandard, so on the GPU machine it runs with:
 
     python -m pytest --noconftest -p no:cacheprovider -q \
@@ -29,7 +32,8 @@ from zstd_tpu_torch.ops import _kernels
 from zstd_tpu_torch.ops.bitpack import pack_bits_lanes
 from zstd_tpu_torch.ops.execute import execute_lanes, execute_lanes_plain
 from zstd_tpu_torch.ops.execute_window import (execute_window,
-                                               execute_window_plain)
+                                               execute_window_plain,
+                                               rounds_used)
 from zstd_tpu_torch.ops.fse_encode import (encode_sequence_lanes_plain,
                                            encode_sequences_packed,
                                            out_words_for, seq_lane_arrays)
@@ -156,6 +160,123 @@ def window_args(inputs, device):
             else torch.from_numpy(np.ascontiguousarray(inputs[k])).to(device)
             for k in ("ll", "ml", "offset", "lit", "out_len", "row_lit_len",
                       "plan", "acc", "base", "hist0", "cap")]
+
+
+def window_byte_loop(inputs):
+    """execute_window's contract as a byte loop: (acc, written, ok)."""
+    ll, ml, off = (inputs[k].astype(np.int64)
+                   for k in ("ll", "ml", "offset"))
+    acc = inputs["acc"].copy()
+    base, plan = inputs["base"], inputs["plan"]
+    written, oks = [], []
+    for c in range(plan.shape[0]):
+        h0 = min(max(int(inputs["hist0"][c]), 0), base)
+        w, ok = 0, True
+        for r in plan[c]:
+            row = min(max(int(r), 0), ll.shape[0] - 1)
+            recs = list(zip(ll[row], ml[row], off[row]))
+            avail = min(w + h0, int(inputs["cap"][c]))
+            pos = lp = 0
+            for l, m, o in recs:
+                if l < 0 or m < 0 or (m and not 0 < o <= pos + l + avail):
+                    ok = False
+                pos += l + m
+                lp += l
+            ok = ok and (pos == inputs["out_len"][row]
+                         and lp <= inputs["row_lit_len"][row]
+                         and base + w + pos <= acc.shape[1])
+            if not ok:
+                break
+            p, lp = base + w, 0
+            for l, m, o in recs:
+                acc[c, p:p + l] = inputs["lit"][row, lp:lp + l]
+                p += l
+                lp += l
+                for _ in range(m):
+                    acc[c, p] = acc[c, p - o]
+                    p += 1
+            w += pos
+        written.append(w)
+        oks.append(ok)
+    return dict(acc=acc, written=written, ok=oks)
+
+
+def chain_inputs(chains, hist0, cap, seed: int = 0, lit_w: int = 256):
+    """execute_window's inputs for hand-made chains: chains[c] is a list of
+    groups, each a list of (ll, ml, offset) records; each group's out_len
+    and row_lit_len are its sums, its literals and each chain's prefill
+    random. Plans are padded with a last, inert row; the expected result
+    is window_byte_loop's."""
+    rng = np.random.default_rng(seed)
+    groups = [g for ch in chains for g in ch]
+    Bf, S = len(groups) + 1, max(len(g) for g in groups)
+    K = max(len(ch) for ch in chains)
+    rec = np.zeros((3, Bf, S), np.int32)
+    for row, g in enumerate(groups):
+        rec[:, row, :len(g)] = np.asarray(g, np.int32).T
+    lit = rng.integers(0, 256, (Bf, lit_w)).astype(np.uint8)
+    plan = np.full((len(chains), K), Bf - 1, np.int32)
+    row = 0
+    for c, ch in enumerate(chains):
+        plan[c, :len(ch)] = np.arange(row, row + len(ch))
+        row += len(ch)
+    hist0 = np.asarray(hist0, np.int32)
+    base = int(hist0.max())
+    out_len = (rec[0] + rec[1]).sum(axis=1).astype(np.int32)
+    width = base + max(sum(int(out_len[r]) for r in p) for p in plan) + 8
+    acc = np.zeros((len(chains), width), np.uint8)
+    for c, h in enumerate(hist0):
+        acc[c, base - h:base] = rng.integers(0, 256, int(h))
+    inputs = dict(ll=rec[0], ml=rec[1], offset=rec[2], lit=lit,
+                  out_len=out_len, row_lit_len=rec[0].sum(axis=1,
+                                                          dtype=np.int32),
+                  plan=plan, acc=acc, base=base, hist0=hist0,
+                  cap=np.asarray(cap, np.int64))
+    return inputs, window_byte_loop(inputs)
+
+
+def deep_chain(groups: int = 30, per_group: int = 2000):
+    """One chain of 4 literals, then groups * per_group - 1 records (0, 4,
+    4) across `groups` groups: every match byte copies the byte 4 back, so
+    the last one's source chain is ~60,000 bytes deep (about 16 doubling
+    rounds). A 16-byte prefill no record reaches."""
+    body = [(0, 4, 4)] * per_group
+    chain = [[(4, 4, 4)] + body[1:]] + [body] * (groups - 1)
+    return chain_inputs([chain], [16], [1 << 20], seed=1)
+
+
+def reach_chains():
+    """Matches at the edge of their reach, and a broken middle group.
+    0: reaches exactly the first prefill byte (pos + hist0); 1: one byte
+    past it; 2: reaches exactly `cap` back in its second group (cap below
+    the history); 3: one byte past the cap there; 4: no prefill, reaches
+    the chain's first byte exactly; 5: one past it; 6: a good group, a
+    group with a zero offset, a good group: only the first is written."""
+    g = [(5, 7, 3), (0, 9, 1)]
+    return chain_inputs(
+        [[[(8, 10, 72), (3, 5, 2)], g],
+         [[(8, 10, 73), (3, 5, 2)], g],
+         [[(60, 40, 30)], [(2, 5, 50), (1, 3, 4)], g],
+         [[(60, 40, 30)], [(2, 5, 51), (1, 3, 4)], g],
+         [[(6, 6, 6), (1, 4, 13)], g],
+         [[(6, 6, 7)]],
+         [[(9, 9, 3), (2, 4, 11)], [(1, 6, 5), (0, 3, 0)], g]],
+        hist0=[64, 64, 0, 0, 0, 0, 0],
+        cap=[1 << 20, 1 << 20, 48, 48, 1 << 20, 1 << 20, 1 << 20], seed=2)
+
+
+def prefill_chains():
+    """Every match reads only dictionary prefill bytes and no record has
+    literals: every pointer is final when seeded (no jump round runs)."""
+    return chain_inputs(
+        [[[(0, 20, 300), (0, 30, 290), (0, 50, 250)],
+          [(0, 40, 350), (0, 60, 400), (0, 7, 390)]],
+         [[(0, 64, 64), (0, 1, 65)]]],
+        hist0=[300, 64], cap=[1 << 20, 512], seed=3)
+
+
+WINDOW_SETS = {"deep": deep_chain, "reach": reach_chains,
+               "prefill": prefill_chains}
 
 
 @pytest.fixture(scope="module")
@@ -396,6 +517,51 @@ def test_window_kernel_random_chains(cuda, seed):
     assert torch.equal(ok_k, ok_p)
     assert np.array_equal(acc_k.cpu().numpy(), exp["acc"])
     assert w_k.tolist() == exp["written"] and ok_k.tolist() == exp["ok"]
+
+
+def _window_on(fn, device, inputs, **kw):
+    """(acc, written, ok) of fn on a fresh copy of `inputs` on `device`."""
+    args = window_args(inputs, device)
+    written, ok = fn(*args, **kw)
+    return args[7], written, ok
+
+
+@pytest.mark.parametrize("name", sorted(WINDOW_SETS))
+def test_window_kernel_edge_chains(cuda, name):
+    inputs, exp = WINDOW_SETS[name]()
+    before = execute_window.launches
+    acc_k, w_k, ok_k = _window_on(execute_window, cuda, inputs,
+                                   wide=False)
+    assert execute_window.launches == before + 1
+    rounds = rounds_used()
+    acc_p, w_p, ok_p = _window_on(execute_window_plain, cuda, inputs)
+    torch.cuda.synchronize()
+    assert torch.equal(acc_k, acc_p) and torch.equal(w_k, w_p)
+    assert torch.equal(ok_k, ok_p)
+    assert np.array_equal(acc_k.cpu().numpy(), exp["acc"])
+    assert w_k.tolist() == exp["written"] and ok_k.tolist() == exp["ok"]
+    bound = execute_window.last_cuda_launches - 4  # the jump launches
+    assert bound == inputs["acc"].shape[1].bit_length()
+    if name == "deep":
+        assert 1 < rounds <= bound
+    if name == "prefill":
+        assert rounds == 0  # every pointer final when seeded
+
+
+@pytest.mark.parametrize("seed", [24, None])
+def test_window_kernel_wide_pointers(cuda, seed):
+    """The 64-bit pointer instantiation, forced on small inputs (random
+    chains, and the deep chain when seed is None)."""
+    inputs, exp = random_chains(seed) if seed else WINDOW_SETS["deep"]()
+    acc_k, w_k, ok_k = _window_on(execute_window, cuda, inputs,
+                                   wide=True)
+    torch.cuda.synchronize()
+    C, width = inputs["acc"].shape
+    assert execute_window.last_scratch_bytes >= 8 * C * (width -
+                                                         inputs["base"])
+    assert np.array_equal(acc_k.cpu().numpy(), exp["acc"])
+    assert w_k.tolist() == exp["written"] and ok_k.tolist() == exp["ok"]
+    assert rounds_used() > 0
 
 
 def test_decoder_on_cuda_chained(cuda):

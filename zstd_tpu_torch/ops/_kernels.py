@@ -47,7 +47,8 @@ SIGNATURES = {
     "xxhash64": ("zt_xxh64_low32_lanes", [_P, _LL, _I, _P, _P, _P, _P]),
     "execute_window": ("zt_execute_window",
                        [_P, _P, _P, _LL, _P, _LL, _P, _P, _I, _P, _I, _I, _P,
-                        _LL, _LL, _P, _P, _P, _P, _P]),
+                        _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I,
+                        _P, _I, _P]),
     "parse": ("zt_parse_lanes",
               [_P, _LL, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P]),
     "fse_encode": ("zt_fse_encode",

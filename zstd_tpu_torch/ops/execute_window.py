@@ -27,7 +27,13 @@ This is zstd_tpu/ops/pallas_execute.py::execute_window_pallas (one block
 group of each chain per call, with a copied window prefix and a separately
 gathered far stream) run over every group of every chain at once: the
 whole history stays in the accumulator, so a near chain and a far chain
-differ only in their cap (the pow2 window W, or the real window).
+differ only in their cap (the pow2 window W, or the real window). The
+kernel is byte-parallel: it validates every group, seeds a source pointer
+for every output byte and follows the pointers by doubling, at most
+bit_length(width) rounds, then gathers (csrc/execute_window.cu says why).
+Its scratch comes from here: the pointers (4 bytes per accumulator column
+past `base` per chain, 8 at a width of 2^31 or more) and 16 bytes per
+record slot of the plan.
 
 The plain version is zstd_tpu/ops/execute.py::execute_window_xla's trick:
 per group, the accumulator bytes the group may reach (the `avail` bytes
@@ -103,13 +109,19 @@ def execute_window_plain(ll, ml, offset, lit, out_len, row_lit_len, plan,
 
 
 def execute_window(ll, ml, offset, lit, out_len, row_lit_len, plan, acc,
-                   base: int, hist0, cap):
+                   base: int, hist0, cap, *, wide: bool | None = None):
     """Execute every block group of every chain into `acc`, in place.
 
     ll, ml, offset (Bf, S) i32 (resolved offsets); lit (Bf, Lw) u8;
     out_len, row_lit_len (Bf,) i32; plan (C, K) i32 frame rows; acc (C, A)
-    u8; base an int; hist0 (C,) i32; cap (C,) i64.
-    Returns (written (C,) i64, ok (C,) bool)."""
+    u8; base an int; hist0 (C,) i32; cap (C,) i64. `wide` picks the
+    kernel's 64-bit pointers (None: when A >= 2**31, as it must).
+    Returns (written (C,) i64, ok (C,) bool).
+
+    One call queues the kernel's phases without waiting for the device;
+    execute_window.launches counts calls, and after each CUDA call
+    last_cuda_launches holds its kernel launches, last_scratch_bytes its
+    scratch and last_flags the jump rounds' flags (rounds_used())."""
     if not _kernels.on_cuda(acc):
         return execute_window_plain(ll, ml, offset, lit, out_len,
                                     row_lit_len, plan, acc, base, hist0, cap)
@@ -138,11 +150,45 @@ def execute_window(ll, ml, offset, lit, out_len, row_lit_len, plan, acc,
     ok = torch.ones(C, dtype=torch.bool, device=dev)
     if C == 0 or K == 0:
         return written, ok
-    _kernels.launch("execute_window", ll, ml, offset, ll.shape[1], lit,
-                    lit.shape[1], out_len, row_lit_len, ll.shape[0], plan, K,
-                    C, acc, acc.shape[1], base, hist0, cap, written, ok)
+    S, A = ll.shape[1], acc.shape[1]
+    if wide is None:
+        wide = A >= 1 << 31
+    elif not wide and A >= 1 << 31:
+        raise ValueError(f"width {A}: 32-bit pointers cannot address it")
+    stride = -(-(A - base) // 4) * 4
+    rounds = A.bit_length()  # the pointer depth is below the width
+    ptr = torch.empty(C * stride, device=dev,
+                      dtype=torch.int64 if wide else torch.int32)
+    rec = torch.empty((2, C * K, S), dtype=torch.int64, device=dev)
+    group_ok = torch.empty(C * K, dtype=torch.uint8, device=dev)
+    n_live = torch.empty(C, dtype=torch.int32, device=dev)
+    flags = torch.empty(rounds + 1, dtype=torch.int32, device=dev)
+    _kernels.launch("execute_window", ll, ml, offset, S, lit, lit.shape[1],
+                    out_len, row_lit_len, ll.shape[0], plan, K, C, acc, A,
+                    base, hist0, cap, written, ok, rec[0], rec[1], group_ok,
+                    n_live, ptr, stride, int(wide), flags, rounds)
     execute_window.launches += 1
+    # validate, chains, seed, the jump rounds, gather
+    execute_window.last_cuda_launches = rounds + 4
+    execute_window.last_scratch_bytes = sum(
+        t.numel() * t.element_size()
+        for t in (ptr, rec, group_ok, n_live, flags))
+    execute_window.last_flags = flags
     return written, ok
 
 
 execute_window.launches = 0
+execute_window.last_cuda_launches = 0
+execute_window.last_scratch_bytes = 0
+execute_window.last_flags = None
+
+
+def rounds_used() -> int:
+    """The jump rounds that had pointers to follow in the last CUDA call
+    (waits for the device: for measurements and tests). Raises if the last
+    round left a pointer open, which the depth bound rules out."""
+    flags = execute_window.last_flags.tolist()
+    if flags[-1]:
+        raise _kernels.KernelError("execute_window: pointers left open "
+                                   f"after {len(flags) - 1} rounds")
+    return sum(flags[:-1])
