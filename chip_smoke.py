@@ -15,13 +15,15 @@ phase raises on failure, so any failure exits non-zero:
      payloads and the host oracle
   4. main path: 1024 frames of 128 KiB (make_corpus(128)), FASTEST with
      checksums, through BatchDecoder().decode_frames (every byte checked,
-     no frame on the host; Huffman, sequence and execute launched) and one
-     serving run (run_device(pull_outputs=False), checksums verified on
-     the device), whose launch counts alone the kernels line reports
+     no frame on the host; Huffman, sequence, resolve and execute
+     launched) and one serving run (run_device(pull_outputs=False),
+     checksums verified on the device), whose launch counts alone the
+     kernels line reports
   5. serving: a warm-up and 5 timed serving runs, then per-stage device
      times from a torch.profiler capture of run_device's trace scopes
   6. each kernel at the main path's shapes on the main path's inputs:
-     bit-equal to its plain version, both timed, beside its bound
+     bit-equal to its plain version, both timed, beside its bound (the
+     executor at the staged width of its own rows)
   7. small chained batch: three 2.5 MiB frames (two block groups each),
      the committed dictionary frames (zstd_tpu_torch/testdata) and a
      2.5 MiB frame broken in its second group; the window kernel bit-equal
@@ -37,7 +39,8 @@ phase raises on failure, so any failure exits non-zero:
  10. the window kernel at the chained path's shapes on its inputs, and on
      the far frame's (one chain, cap the real window): bit-equal to its
      plain version, both timed, beside its bound; its jump rounds, CUDA
-     launches per call and scratch bytes
+     launches per call and scratch bytes; the resolve kernel with the chain
+     plans of both batches, bit-equal to its plain version and timed
  11. entropy path: bench.py's encode scenario (make_corpus(8, seed=5), 64
      frames of 128 KiB) through BatchEncoder() with the host matcher;
      every frame equal to compress_to_vec's, fse_encode launched
@@ -144,10 +147,27 @@ def stage_outputs(d):
     return lit, ll, ml, of
 
 
-def kernel_cases(d, out_width):
+def resolve_case(d, ll, ml, of):
+    """(setup, call, kernel, plain) of the resolve kernel on the staged
+    batch `d` and the records the sequence stage gave it, with the batch's
+    chain plan when it has one."""
+    from zstd_tpu_torch.ops import sequence
+
+    chain = ([] if d["chains"] is None
+             else [d["chain_rows"], d["chain_row_cont"]])
+
+    def call(fn, _):
+        return list(fn(ll, ml, of, d["is_real"], d["init_hist"], *chain))
+
+    return (list, call, sequence.resolve_frames,
+            sequence.resolve_frames_plain)
+
+
+def kernel_cases(d):
     """{name: (setup() -> buffers, call(fn, buffers) -> outputs, kernel fn,
-    plain fn)} on the staged batch `d`, plus the stage outputs. The execute
-    and checksum inputs are what the stages before them produce."""
+    plain fn)} on the staged batch `d`, plus the stage outputs. The
+    resolve, execute and checksum inputs are what the stages before them
+    produce; the executor runs at the staged width of its own rows."""
     import torch
 
     from zstd_tpu_torch.models.batch_decoder import _resolve
@@ -175,6 +195,7 @@ def kernel_cases(d, out_width):
     lit, ll, ml, of = stage_outputs(d)
     offsets, out_len, _ = _resolve(ll, ml, of, d["is_real"], d["init_hist"])
     rows = d["exec_rows"]
+    out_width = d["exec_width"]
     out, _ = execute.execute_lanes(ll, ml, offsets, lit, out_len, rows,
                                    out_width)
     skip = d["ck_skip"]
@@ -191,6 +212,7 @@ def kernel_cases(d, out_width):
                     huffman.huffman_lanes_plain),
         "sequence": (setup_seq, call_seq, sequence.sequence_lanes,
                      sequence.sequence_lanes_plain),
+        "resolve": resolve_case(d, ll, ml, of),
         "execute": (list, call_exec, execute.execute_lanes,
                     execute.execute_lanes_plain),
         "xxhash64": (list, call_xxh, xxhash64.xxh64_low32_lanes,
@@ -340,7 +362,7 @@ def phase_small():
     dec = BatchDecoder()
     batch = dec.prepare(frames)
     d = dec.stage(batch)
-    cases, _ = kernel_cases(d, batch.out_width)
+    cases, _ = kernel_cases(d)
     for name, case in cases.items():
         compare(name, *case)
     (ll, ml, of, lit, out_len), rows, want = _regimes(d["lit_base"].device)
@@ -373,6 +395,7 @@ def _counters():
 
     return {"huffman": huffman.huffman_lanes,
             "sequence": sequence.sequence_lanes,
+            "resolve": sequence.resolve_frames,
             "execute": execute.execute_lanes,
             "xxhash64": xxhash64.xxh64_low32_lanes,
             "execute_window": execute_window.execute_window}
@@ -423,7 +446,7 @@ def phase_main():
     n_seq = int((batch.seq_n > 0).sum())
     need(n_huff > 0 and n_seq > 0, "main path: no Huffman or sequence lanes")
     # decode_frames verifies checksums on the host, so no xxhash64 there
-    for k in ("huffman", "sequence", "execute"):
+    for k in ("huffman", "sequence", "resolve", "execute"):
         need(decode_launches[k] > 0,
              f"main path: decode_frames never launched kernel {k}")
     for k in SINGLE_GROUP:
@@ -433,14 +456,15 @@ def phase_main():
         f"(upload) {t_stage * 1e3:.3f} ms")
     say(f"main path: decode_frames {t_decode:.2f} s, all {len(frames)} "
         f"frames byte-exact, host_frames 0, {n_huff} Huffman lanes, "
-        f"{n_seq} sequence lanes, {int(batch.seq_n.sum())} sequences, "
+        f"{n_seq} sequence lanes, {int(batch.seq_n.sum())} sequences "
+        f"(longest lane {int(batch.seq_n.max())}), "
         f"launches {decode_launches}")
     say(f"main path: one serving run, checksums verified on the device, "
         f"launches {launches}")
     return dec, batch, staged, n_bytes, launches
 
 
-SINGLE_GROUP = ("huffman", "sequence", "execute", "xxhash64")
+SINGLE_GROUP = ("huffman", "sequence", "resolve", "execute", "xxhash64")
 STAGES = ("huffman_decode", "sequence_decode", "offset_resolution",
           "lz77_execute", "device_checksum", "lz77_window_execute")
 
@@ -512,6 +536,31 @@ def phase_serving(dec, batch, staged, n_bytes, label: str = "serving",
     return t, stage_ms
 
 
+def resolve_work(d):
+    """(bytes, operations) the resolve kernel needs on staged batch d:
+    ll, ml, of_value (i32) and is_real (u8) read and the offset written,
+    17 bytes a slot, and each row's history read and out_len and ok
+    written; with chains, the first pass's 9 bytes a slot (ll, of_value,
+    is_real), each row's transform written and read twice (24 bytes) and
+    the plan. Operations: ~24 integer ops a slot (its symbol and transform
+    ~10, one composition ~10, one application ~4), 24 a slot more with
+    chains."""
+    Bf, S = d["ll_base"].shape
+    slots = Bf * S
+    nbytes, ops = 17 * slots + 17 * Bf, 24 * slots
+    if d["chains"] is not None:
+        nbytes += 9 * slots + 48 * Bf + 4 * d["chain_rows"].numel() + Bf
+        ops += 24 * slots
+    return nbytes, ops
+
+
+def _bound(nbytes, ops):
+    """(least ms, "bytes" or "operations") of nbytes moved and ops done."""
+    tb = nbytes / H100_BYTES_PER_S * 1e3
+    to = ops / H100_OPS_PER_S * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations"
+
+
 def _bounds(batch, d, inputs):
     """Least bytes each kernel must move and ops it must do on this run's
     inputs: each input read once, each output written once."""
@@ -534,33 +583,33 @@ def _bounds(batch, d, inputs):
     run = (inputs["ll"] + inputs["ml"])[d["exec_rows"].long()] > 0
     idx = np.arange(run.shape[1])[None, :]
     last = np.where(run.cpu().numpy(), idx + 1, 0).max(axis=1)
-    n_out = len(rows) * batch.out_width
+    n_out = len(rows) * d["exec_width"]
     exec_bytes = (12 * int(last.sum()) + int(batch.row_lit_len[rows].sum())
                   + 8 * len(rows) + n_out + len(rows))
     hashed = int(inputs["length"].clamp(min=0).sum())
     xxh_bytes = hashed + 16 * len(rows)
+    res_bytes, res_ops = resolve_work(d)
     # operation counts per unit of work (integer ALU ops, rounded down):
     # a Huffman symbol ~8, a sequence ~40, an output byte ~1, a hashed byte ~1
-    ops = {"huffman": 8 * n_sym, "sequence": 40 * n_seq,
+    ops = {"huffman": 8 * n_sym, "sequence": 40 * n_seq, "resolve": res_ops,
            "execute": n_out, "xxhash64": hashed}
     nbytes = {"huffman": huff_bytes, "sequence": seq_bytes,
-              "execute": exec_bytes, "xxhash64": xxh_bytes}
-    out = {}
-    for k in nbytes:
-        tb = nbytes[k] / H100_BYTES_PER_S * 1e3
-        to = ops[k] / H100_OPS_PER_S * 1e3
-        out[k] = (max(tb, to), "bytes" if tb >= to else "operations")
-    return out
+              "resolve": res_bytes, "execute": exec_bytes,
+              "xxhash64": xxh_bytes}
+    return {k: _bound(nbytes[k], ops[k]) for k in nbytes}
 
 
 def phase_kernels(batch, staged, launches):
     import torch
 
-    cases, inputs = kernel_cases(staged, batch.out_width)
+    from zstd_tpu_torch.ops.sequence import resolve_frames
+
+    cases, inputs = kernel_cases(staged)
     bounds = _bounds(batch, staged, inputs)
     replaces = {
         "huffman": "zstd_tpu/ops/pallas_huffman.py:71",
         "sequence": "zstd_tpu/ops/pallas_sequence.py:205",
+        "resolve": "zstd_tpu/ops/sequence.py:251",
         "execute": "zstd_tpu/ops/pallas_execute.py:617",
         "xxhash64": "zstd_tpu/ops/xxhash64.py:146",
     }
@@ -579,7 +628,9 @@ def phase_kernels(batch, staged, launches):
             "bound_by": bounds[name][1], "library_ms": None})
         say(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, "
             f"bound {bounds[name][0]:.4f} ms by {bounds[name][1]}), "
-            f"max abs err {err} (tolerance 0: integer codec)")
+            f"max abs err {err} (tolerance 0: integer codec)"
+            + (f", {resolve_frames.last_cuda_launches} CUDA launches per call"
+               if name == "resolve" else ""))
         torch.cuda.empty_cache()
     return rows
 
@@ -700,7 +751,7 @@ def phase_chained():
     need(dec.host_frames == 0, f"chained path: {dec.host_frames} host frames")
     groups = [len(m.rows) for m in batch.metas]
     need(min(groups) > 1, "chained path: a frame is not chained")
-    for k in ("huffman", "sequence", "execute_window"):
+    for k in ("huffman", "sequence", "resolve", "execute_window"):
         need(decode_launches[k] > 0 and launches[k] > 0,
              f"chained path: kernel {k} was not launched")
     ch = staged["chains"]
@@ -709,7 +760,8 @@ def phase_chained():
     say(f"chained path: window {window} bytes, block groups per frame "
         f"{min(groups)}-{max(groups)}, {int((batch.huff_nsym > 0).sum())} "
         f"Huffman lanes, {int((batch.seq_n > 0).sum())} sequence lanes, "
-        f"{int(batch.seq_n.sum())} sequences, accumulator {ch['width']} "
+        f"{int(batch.seq_n.sum())} sequences (longest lane "
+        f"{int(batch.seq_n.max())}), accumulator {ch['width']} "
         f"bytes per chain, {C * ch['width']} bytes in all")
     say(f"chained path: host prepare {t_prepare * 1e3:.3f} ms, stage "
         f"{t_stage * 1e3:.3f} ms, decode_frames {t_decode:.2f} s, all "
@@ -758,7 +810,10 @@ def phase_far():
             f"{framer.STREAM_WINDOW_CAP} bytes (longest offset {longest}); "
             f"the far reach is not exercised by this frame")
     say(f"far: window {m.window}, {len(m.rows)} block groups, "
-        f"{len(body)} bytes exact, host_frames 0")
+        f"{len(body)} bytes exact, host_frames 0, "
+        f"{int((batch.seq_n > 0).sum())} sequence lanes, "
+        f"{int(batch.seq_n.sum())} sequences (longest lane "
+        f"{int(batch.seq_n.max())})")
     phase_serving(dec, batch, d, len(body), label="far serving", runs=3)
     need(d["chain_cap"].tolist() == [m.window],
          "far: the chain's cap is not the real window")
@@ -779,9 +834,38 @@ def _window_bound(d, inputs, written):
     n_out = int(written.sum())
     nbytes = (12 * records + int(d["row_lit_len"][rows].long().sum())
               + 16 * rows.numel() + n_out)
-    tb = nbytes / H100_BYTES_PER_S * 1e3
-    to = n_out / H100_OPS_PER_S * 1e3
-    return max(tb, to), "bytes" if tb >= to else "operations"
+    return _bound(nbytes, n_out)
+
+
+def _resolve_run(label, staged):
+    """The resolve kernel with the chain plan of a staged chained batch:
+    bit-equal to its plain version, both timed, beside its bound."""
+    import torch
+
+    from zstd_tpu_torch.ops.sequence import resolve_frames
+
+    _, ll, ml, of = stage_outputs(staged)
+    case = resolve_case(staged, ll, ml, of)
+    err = compare(f"resolve ({label})", *case)
+    setup, call, kern, plain = case
+    ms = cuda_ms(setup, call, kern, reps=5)
+    plain_ms = cuda_ms(setup, call, plain, reps=1)
+    bound, bound_by = _bound(*resolve_work(staged))
+    say(f"kernel resolve, {label}: {ms:.4f} ms (plain {plain_ms:.2f} ms, "
+        f"bound {bound:.4f} ms by {bound_by}), max abs err {err} (tolerance "
+        f"0: integer codec), {resolve_frames.last_cuda_launches} CUDA "
+        f"launches per call, {staged['chain_rows'].shape[0]} chains of up "
+        f"to {staged['chain_rows'].shape[1]} rows, slot rows "
+        f"{tuple(ll.shape)}")
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_resolve_chained(staged, far_staged):
+    """The resolve kernel on the chained path's and the far frame's
+    batches; the larger error."""
+    return max(_resolve_run("chained path", staged),
+               _resolve_run("far frame", far_staged))
 
 
 WINDOW_PHASES = ("validate", "chains", "seed", "jump", "gather")
@@ -1090,12 +1174,8 @@ def _encode_bounds(args, outputs):
     total = outputs["fse_encode"][1].long()
     out_bytes = int(((total + 31) // 32).sum()) * 4
     fse_bytes = 12 * n_seq + tables + out_bytes + 20 * seq_lanes
-    out = {}
-    for k, nbytes, ops in (("parse", parse_bytes, positions + extended),
-                           ("fse_encode", fse_bytes, 40 * n_seq)):
-        tb = nbytes / H100_BYTES_PER_S * 1e3
-        to = ops / H100_OPS_PER_S * 1e3
-        out[k] = (max(tb, to), "bytes" if tb >= to else "operations")
+    out = {"parse": _bound(parse_bytes, positions + extended),
+           "fse_encode": _bound(fse_bytes, 40 * n_seq)}
     return out, dict(lanes=B, valid_bytes=int(n_valid.long().sum()),
                      visited_positions=positions, extended_bytes=extended,
                      records=records, sequence_lanes=seq_lanes,
@@ -1164,6 +1244,9 @@ def main() -> int:
     phase_serving(dec, batch, staged, n_bytes, label="chained serving")
     far = phase_far()
     rows.append(phase_window_kernel(staged, launches, far))
+    res = next(r for r in rows if r["name"] == "resolve")
+    res["max_abs_err"] = max(res["max_abs_err"],
+                             phase_resolve_chained(staged, far))
     del dec, batch, staged, far
     payloads, host_ratio = phase_encode_host()
     launches, args = phase_encode_device(payloads, host_ratio)

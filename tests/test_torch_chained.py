@@ -260,6 +260,60 @@ def test_resolve_chained_matches_reference(port_batch):
     assert not torch.equal(own, offsets)
 
 
+SUB_BATCHES = {"chained": ("near", "near16", "single", "corrupt"),
+               "far": ("far", "single"),
+               "dict": ("dict_far", "dict_near", "dict_prefill",
+                        "single_dict")}
+
+
+@pytest.mark.parametrize("name", sorted(SUB_BATCHES))
+def test_resolve_frames_matches_reference_on_sub_batches(chained, name):
+    """The stage-2 wrapper's CPU path on the chained, far and dictionary
+    frames of the tiny-caps batch (each batch with single-group frames
+    beside them) against zstd_tpu's _resolve_chained."""
+    frames, _, dict_bytes, kinds = chained
+    pick = [f for f, k in zip(frames, kinds) if k in SUB_BATCHES[name]]
+    dec = bd.BatchDecoder(device="cpu")
+    dec.add_dict(dict_bytes)
+    batch = dec.prepare(pick)
+    d = dec.stage(batch)
+    assert d["chains"] is not None
+    _, ll, ml, of, _ = _stages(d)
+    got = sequence.resolve_frames(ll, ml, of, d["is_real"], d["init_hist"],
+                                  d["chain_rows"], d["chain_row_cont"])
+    ref = ref_bd._resolve_chained(
+        *(jnp.asarray(x.numpy()) for x in (ll, ml, of, d["is_real"],
+                                           d["init_hist"],
+                                           d["chain_row_cont"])))
+    for a, b in zip(got, ref):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+    if name == "far":
+        from zstd_tpu_torch.models.framer import STREAM_WINDOW_CAP
+
+        assert int(d["chain_cap"].max()) > STREAM_WINDOW_CAP
+
+
+def test_single_group_rows_execute_at_their_own_width(chained, port_batch):
+    """Small single-group frames beside chained ones execute at the width
+    of their own bounds, not the chained frames' (the batch's), with the
+    same bytes."""
+    frames, payloads, _, kinds = chained
+    dec, batch = port_batch
+    d = dec.stage(batch)
+    rows = d["exec_rows_list"]
+    own = max(int(batch.out_len[r]) for r in rows)
+    assert d["exec_width"] == 1 << (own - 1).bit_length()
+    assert d["exec_width"] < batch.out_width
+    outputs, out_len, ok = dec.run_device(batch, d, pull_outputs=False)
+    for m, p, k in zip(batch.metas, payloads, kinds):
+        r = m.rows[0]
+        if r in rows:
+            t, i = outputs[r]
+            assert t.shape[1] == d["exec_width"]
+            assert bool(ok[r])
+            assert t[i, m.dict_skip:int(out_len[r])].numpy().tobytes() == p
+
+
 # ---- the windowed executor --------------------------------------------------
 
 def _drive(inputs, step):

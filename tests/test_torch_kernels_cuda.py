@@ -9,7 +9,11 @@ across group boundaries, bad offsets); the decoder runs chained frames and
 the committed dictionary frames of zstd_tpu_torch/testdata. The encoder's
 kernels (greedy parse, FSE encode) run on seeded random blocks and on the
 sequence lanes of real payloads, RLE-table and empty lanes included, and
-the encoder on the card is held to the host encoder's frames. The window
+the encoder on the card is held to the host encoder's frames. The
+redesigned sequence kernel also runs 1-sequence lanes, RLE tables and a
+batch of more than 1024 lanes; the resolve kernel runs random records
+(repeat codes, of_value 0 and values near 2^31), the staged batch and
+chained rows with inert padding and a 30-group chain. The window
 kernel also runs hand-made chains (a ~60,000-byte-deep chain, matches at
 the exact edge of their reach and one byte past it, a broken middle group,
 prefill-only sources) and its 64-bit pointers on small inputs. This file
@@ -40,7 +44,8 @@ from zstd_tpu_torch.ops.fse_encode import (encode_sequence_lanes_plain,
 from zstd_tpu_torch.ops.huffman import huffman_lanes, huffman_lanes_plain
 from zstd_tpu_torch.ops.match_finder import (find_candidates, parse_lanes,
                                              parse_lanes_plain)
-from zstd_tpu_torch.ops.sequence import sequence_lanes, sequence_lanes_plain
+from zstd_tpu_torch.ops.sequence import (resolve_frames, resolve_frames_plain,
+                                         sequence_lanes, sequence_lanes_plain)
 from zstd_tpu_torch.ops.xxhash64 import (xxh64_low32_lanes,
                                          xxh64_low32_lanes_plain)
 from zstd_tpu_torch.testdata import load_dict_fixture, matches_digest
@@ -687,3 +692,192 @@ def test_device_matched_frames_on_cuda(cuda):
     assert frames == ref
     dec = BatchDecoder(device=cuda)
     assert dec.decode_frames(frames) == payloads and dec.host_frames == 0
+
+
+# ---- the redesigned sequence kernel and the resolve kernel ------------------
+
+def _seq_on(d, args=None):
+    """(ll, ml, of, frame_ok) of the sequence kernel and of its plain
+    version on staged batch d, and the kernel's launch count delta."""
+    outs = []
+    before = sequence_lanes.launches
+    for fn in (sequence_lanes, sequence_lanes_plain):
+        arrs = [d[k].clone() for k in ("ll_base", "ml_base", "of_base")]
+        ok = torch.ones(arrs[0].shape[0], dtype=torch.bool,
+                        device=arrs[0].device)
+        fn(*(args or _seq_args(d)), *arrs, ok)
+        outs.append(arrs + [ok])
+    torch.cuda.synchronize()
+    return outs, sequence_lanes.launches - before
+
+
+def _small_lane_frames(seed: int = 3) -> list:
+    """Frames whose blocks hold one sequence each, frames whose code
+    streams are RLE tables (log 0), and a 300 KiB frame of three blocks:
+    one row fed by several lanes."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(6):
+        r = rng.integers(0, 256, 200, dtype=np.uint8).tobytes()
+        out.append(r + r[:60] + rng.integers(0, 256, 50,
+                                             dtype=np.uint8).tobytes())
+    return out + [b"ab" * 1000, b"xyz" * 3000, b"q" * 5000 + b"r" * 10,
+                  _payloads(1, 300 << 10, seed)[0]]
+
+
+@pytest.mark.parametrize("kind", ["small_lanes", "wide_batch"])
+def test_sequence_kernel_lane_shapes(cuda, kind):
+    """1-sequence lanes, RLE tables and a row of several lanes, or more
+    than 1024 lanes (several lanes per SM): bit-equal to the plain
+    version."""
+    if kind == "small_lanes":
+        payloads = _small_lane_frames()
+    else:
+        rng = np.random.default_rng(6)
+        payloads = [rng.integers(0, 4, 1500, dtype=np.uint8).tobytes() * 2
+                    for _ in range(1100)]
+    frames = [bytes(compress_to_vec(p, CompressionLevel.FASTEST))
+              for p in payloads]
+    dec = BatchDecoder(device=cuda)
+    batch = dec.prepare(frames)
+    d = dec.stage(batch)
+    n = batch.seq_n[:-1]
+    if kind == "small_lanes":
+        assert (n == 1).sum() >= 6
+        live = n > 0
+        logs = [batch.ll_logs[batch.ll_tid[:-1][live]],
+                batch.of_logs[batch.of_tid[:-1][live]],
+                batch.ml_logs[batch.ml_tid[:-1][live]]]
+        assert all((lg == 0).any() for lg in logs)
+        rows = batch.seq_dst_frame[:-1][live]
+        assert np.bincount(rows).max() >= 3
+    else:
+        assert (n > 0).sum() > 1024
+    (got, exp), launched = _seq_on(d)
+    assert launched == 1
+    for a, b in zip(got, exp):
+        assert torch.equal(a, b)
+    assert bool(got[3].all())
+    assert dec.decode_frames(frames) == payloads and dec.host_frames == 0
+
+
+@pytest.mark.parametrize("where", ["init_neg", "init_far", "stream_top",
+                                   "stream_tail", "wide_states"])
+def test_sequence_kernel_corrupted_lanes(case, where):
+    """A lane whose start (negative, or far past its bytes), top bytes or
+    last bytes are broken, or tables whose state updates read 32 and 31
+    bits (a sequence's fields then pass 63 bits): every slot and flag as
+    the plain version has them."""
+    _, _, d, _, _ = case
+    args = _seq_args(d)
+    lanes = torch.nonzero(d["seq_n"] > 0)[:, 0]
+    b = int(lanes[len(lanes) // 2])
+    if where == "wide_states":
+        for i, nb in ((6, 32), (7, 31)):  # the LL and OF tables
+            args[i] = (args[i] & ~0xFF00) | (nb << 8)
+    elif where.startswith("init"):
+        pos = args[1].clone()
+        pos[b] = -1 if where == "init_neg" else pos[b] + 40000
+        args[1] = pos
+    else:
+        streams = args[0].clone()
+        top = int(d["seq_pos"][b]) // 8
+        lo = 0 if where == "stream_tail" else max(top - 3, 0)
+        streams[b, lo:lo + 4] ^= 0x5A
+        args[0] = streams
+    (got, exp), _ = _seq_on(d, args)
+    for a, e in zip(got, exp):
+        assert torch.equal(a, e)
+    if where == "init_neg":
+        assert not bool(got[3][int(d["seq_dst_frame"][b])])
+
+
+def random_resolve(seed: int, B: int = 40, S: int = 300):
+    """Random records: literal and repeat codes, ll == 0 shifts,
+    synthetic records, of_value 0 and negative, values near 2^31 and
+    lengths whose row sums wrap."""
+    rng = np.random.default_rng(seed)
+    ll = rng.integers(0, 3, (B, S)).astype(np.int64)
+    ml = rng.integers(0, 60, (B, S)).astype(np.int64)
+    ofv = np.where(rng.random((B, S)) < 0.5, rng.integers(1, 4, (B, S)),
+                   rng.integers(4, 5000, (B, S))).astype(np.int64)
+    big = rng.random((B, S)) < 0.03
+    ofv = np.where(big, (1 << 31) - rng.integers(1, 8, (B, S)), ofv)
+    ofv[:10] = np.where(rng.random((10, S)) < 0.01, 0, ofv[:10])
+    ofv[3, 7] = -(1 << 31)
+    ll[5] = (1 << 31) - 1  # row 5's length wraps
+    is_real = rng.random((B, S)) < 0.85
+    is_real[3, 7] = True
+    hist = rng.integers(1, 1 << 20, (B, 3)).astype(np.int64)
+    hist[2] = [(1 << 31) - 1, 1, 2]
+    return [torch.from_numpy(x.astype(np.int32)) for x in (ll, ml, ofv)] + [
+        torch.from_numpy(is_real), torch.from_numpy(hist.astype(np.int32))]
+
+
+def random_chain_plan(B: int, seed: int):
+    """Chains over rows 0..B-2 (one of 30 groups, others of 1-4), padded
+    with the inert row B - 1; cont marks every chain's rows after its
+    first."""
+    rng = np.random.default_rng(seed)
+    rows, cont = [], np.zeros(B, bool)
+    order = rng.permutation(B - 1)
+    sizes = [30] + list(rng.integers(1, 5, B))
+    at = 0
+    for n in sizes:
+        if at >= B - 1:
+            break
+        chain = order[at:at + n]
+        rows.append(chain)
+        cont[chain[1:]] = True
+        at += n
+    K = max(len(r) for r in rows)
+    plan = np.full((len(rows), K), B - 1, np.int32)
+    for c, r in enumerate(rows):
+        plan[c, :len(r)] = r
+    return torch.from_numpy(plan), torch.from_numpy(cont)
+
+
+def _resolve_both(device, args, chain=None):
+    args = [a.to(device) for a in args]
+    chain = [] if chain is None else [c.to(device) for c in chain]
+    before = resolve_frames.launches
+    got = resolve_frames(*args, *chain)
+    exp = resolve_frames_plain(*args, *chain)
+    torch.cuda.synchronize()
+    assert resolve_frames.launches == before + 1
+    return got, exp
+
+
+@pytest.mark.parametrize("seed,chained,S", [(41, False, 300),
+                                            (42, False, 2500),
+                                            (43, True, 300), (44, True, 2500)])
+def test_resolve_kernel_random_records(cuda, seed, chained, S):
+    """Random records; rows of one warp task (300 slots) and of three
+    (2500: the later tasks start from the earlier ones' transforms)."""
+    args = random_resolve(seed, B=80 if chained else 40, S=S)
+    chain = random_chain_plan(args[0].shape[0], seed) if chained else None
+    if chained:
+        assert (chain[0] != args[0].shape[0] - 1).sum(1).max() == 30
+    got, exp = _resolve_both(cuda, args, chain)
+    assert resolve_frames.last_cuda_launches == (3 if chained else 2)
+    for a, b in zip(got, exp):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    ok = got[2].tolist()
+    assert not ok[3] and True in ok and False in ok
+
+
+def test_resolve_kernel_staged_batches(case):
+    """The staged batch's records after the entropy stages, and the same
+    records with a chain plan laid over their rows."""
+    _, _, d, _, _ = case
+    lit = d["lit_base"].clone()
+    ll, ml, of = (d[k].clone() for k in ("ll_base", "ml_base", "of_base"))
+    ok = torch.ones(lit.shape[0], dtype=torch.bool, device=lit.device)
+    sequence_lanes(*_seq_args(d), ll, ml, of, ok)
+    args = [ll, ml, of, d["is_real"], d["init_hist"]]
+    for chain in (None, random_chain_plan(ll.shape[0], 5)):
+        got, exp = _resolve_both(ll.device, args, chain)
+        for a, b in zip(got, exp):
+            assert torch.equal(a, b)
+        if chain is None:
+            assert bool(got[2][:-1].all())

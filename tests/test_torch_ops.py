@@ -204,6 +204,28 @@ def test_resolve_matches_reference(staged):
     assert np.array_equal(ok.numpy(), np.asarray(r_ok))
 
 
+def test_resolve_frames_matches_reference(staged):
+    """The stage-2 wrapper's CPU path (its kernel's plain twin) against
+    zstd_tpu's _resolve on the mixed batch, with and without the chain
+    arguments of a batch whose chains are single rows."""
+    batch, d = staged
+    (ll, ml, of), _ = _seq(d)
+    r_off, r_len, r_ok, _ = ref_bd._resolve(
+        jnp.asarray(ll.numpy()), jnp.asarray(ml.numpy()),
+        jnp.asarray(of.numpy()), jnp.asarray(batch.is_real),
+        jnp.asarray(batch.frame_hist))
+    B = ll.shape[0]
+    plans = [(), (torch.arange(B, dtype=torch.int32)[:, None],
+                  torch.zeros(B, dtype=torch.bool))]
+    for plan in plans:
+        offsets, out_len, ok = sequence.resolve_frames(
+            ll, ml, of, d["is_real"], d["init_hist"], *plan)
+        assert offsets.dtype == torch.int32 and out_len.dtype == torch.int32
+        assert np.array_equal(offsets.numpy(), np.asarray(r_off))
+        assert np.array_equal(out_len.numpy(), np.asarray(r_len))
+        assert np.array_equal(ok.numpy(), np.asarray(r_ok))
+
+
 def test_resolve_flags_zero_of_value():
     """A real record with of_value 0 is flagged, not resolved as repcode 1."""
     ll = torch.tensor([[3, 2, 1]], dtype=torch.int32)

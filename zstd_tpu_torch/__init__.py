@@ -3,12 +3,12 @@
 A port of `zstd_tpu` to one NVIDIA H100: the host layers (oracle, framer,
 native runtime, host encoder) are carried over unchanged. Each stage that
 is a Pallas kernel in the reference (Huffman and sequence decode, LZ77
-execute, windowed execute, greedy parse), the xxh64 checksum and the FSE
-sequence encode run as hand-written CUDA kernels (`csrc/*.cu`), each with a
-plain torch version beside it for CPU tensors. The stages that are XLA in
-the reference stay plain torch on the card too: offset resolution, the
-match finder's candidates (`find_candidates`) and the Huffman bit pack
-(`ops/bitpack.pack_bits_lanes`).
+execute, windowed execute, greedy parse), the xxh64 checksum, the offset
+resolution and the FSE sequence encode run as hand-written CUDA kernels
+(`csrc/*.cu`), each with a plain torch version beside it for CPU tensors.
+Two stages that are XLA in the reference stay plain torch on the card
+too: the match finder's candidates (`find_candidates`) and the Huffman
+bit pack (`ops/bitpack.pack_bits_lanes`).
 
   - decoding: FrameDecoder, StreamingDecoder, decode_all (host oracle)
   - encoding: compress, compress_to_vec, FrameCompressor (host encoder)

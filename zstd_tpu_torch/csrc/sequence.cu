@@ -1,4 +1,4 @@
-// Interleaved 3-state tANS sequence decoder, one thread per block lane,
+// Interleaved 3-state tANS sequence decoder, one warp per block lane,
 // fused with the stage's slot scatter and trailing-literal fill.
 //
 // Replaces: zstd_tpu/ops/pallas_sequence.py::_seq_kernel (wrapper
@@ -20,17 +20,44 @@
 // leaves its gap slots zero, so writing only the decoded slots equals the
 // reference's zero-filling row scatter.
 //
-// Bound on this card: each lane is a serial chain (three dependent table
-// loads and up to seven bit reads per sequence), so the kernel is
-// latency-bound far above its bytes bound (streams read once, three i32
-// slots written per sequence). One warp per block spreads the lanes over
-// all SMs; the code tables sit in constant memory.
+// Bound on this card: the streams read once and 12 bytes written per
+// sequence over 3.35 TB/s (tens of microseconds on the main path). But a
+// lane is a serial chain: each sequence's three table lookups wait on the
+// state the sequence before it read, and each bit read on the position
+// the read before it left. So the kernel is bound by the latency of one
+// lane's chain, and its design shortens that chain and runs every lane at
+// once:
+//   - one 32-thread block per lane, so the lanes spread over every SM (the
+//     main path's 1024 lanes are ~8 blocks an SM) and no two lanes share a
+//     warp's lockstep;
+//   - the warp copies the lane's three FSE tables into shared memory first,
+//     folding each LL and ML state's baseline and extra-bit count into a
+//     second word beside its entry: a step makes one shared-memory lookup
+//     per state and no dependent code-table load;
+//   - the warp stages the lane's stream bytes in a 2 KiB shared-memory
+//     window (16-byte loads); the warp moves the window down when the chain
+//     nears its bottom, once every ~1,000 sequences;
+//   - a sequence's six bit fields (three extra-bit fields, three state
+//     updates) are one read of their summed width (four reads only past 63
+//     bits): two 8-byte shared-memory loads at the position, issued beside
+//     the three table lookups, so a step waits on one shared-memory
+//     latency; the chain carries each state as its clamped table index and
+//     its position in 32 bits relative to the window;
+//   - one thread runs the chain and writes each record into a 64-entry
+//     shared-memory ring; the warp flushes the ring to the slot rows as
+//     coalesced stores.
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "bitreader.cuh"
-
 namespace {
+
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kRing = 64;         // records per flush
+constexpr int kWin = 2048;        // stream window bytes, a multiple of 16
+constexpr int kWinAlloc = kWin + 32;  // + alignment slack + the u64 over-read
+// the most bits one sequence reads: of 31, ml 16, ll 16 extra bits and three
+// state updates of at most 32 bits each
+constexpr int kSeqBits = 31 + 16 + 16 + 3 * 32;
 
 __constant__ int32_t kLLBase[36] = {
     0,  1,  2,  3,  4,  5,  6,  7,  8,   9,   10,  11,   12,   13,   14,   15,   16,    18,
@@ -45,24 +72,88 @@ __constant__ int32_t kMLExtra[53] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0
                                      0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1,
                                      2, 2, 3, 3, 4, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
 
-struct Fse {
-  const int32_t* row;
-  int width;
+// The reverse bit reader of bitreader.cuh, without its container: bits
+// [pr - n, pr) for 0 <= n <= 63, bit pr - n the LSB, where pr is a bit
+// position relative to the warp's shared-memory window of the stream (row
+// bytes [blo, blo + kWinAlloc - 16) at win[0..], so pr = p - 8 * blo).
+// Each read fetches the two 8-byte words around bits [pr - 64, pr); the
+// chain keeps pr - 64 - kSeqBits >= 0. The window holds zeros for bytes
+// outside the row, so bits below bit 0 and bytes at or past the row read as
+// zeros, as in bitreader.cuh.
+__device__ __forceinline__ uint64_t read_at(const uint64_t* w64, int pr,
+                                            int n) {
+  const int off = pr - 64;
+  const uint64_t a = w64[off >> 6], b = w64[(off >> 6) + 1];
+  const int r = off & 63;
+  const uint64_t c = r ? (a >> r) | (b << (64 - r)) : a;  // bits [pr-64, pr)
+  return n ? c >> (64 - n) : 0;
+}
+
+__device__ __forceinline__ uint32_t low_bits(uint64_t v, int n) {
+  return (uint32_t)v & (n >= 32 ? 0xFFFFFFFFu : ((1u << n) - 1u));
+}
+
+// the least window position at which a whole sequence may be decoded
+constexpr int kMinPr = kSeqBits + 64;
+
+// The whole warp: load the window whose top covers the container that a
+// read ending at bit p refills, the window's first byte 16-aligned in
+// memory. Bytes outside [0, len) of the row are zeros. Returns blo.
+__device__ long long load_window(uint8_t* win, const uint8_t* row,
+                                 long long len, long long p, int lane) {
+  long long top = (p + 7) >> 3;
+  long long want = top - (kWinAlloc - 32);
+  long long mis = (long long)(((uintptr_t)row + (uintptr_t)want) & 15u);
+  long long blo = want - mis;
+  for (int j = lane; j < (kWinAlloc - 16) / 16; j += 32) {
+    long long r0 = blo + 16LL * j;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r0 >= 0 && r0 + 16 <= len) {
+      v = __ldg(reinterpret_cast<const uint4*>(row + r0));
+    } else if (r0 + 16 > 0 && r0 < len) {
+      uint8_t b[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        long long r = r0 + i;
+        b[i] = (r >= 0 && r < len) ? row[r] : 0;
+      }
+      v.x = b[0] | b[1] << 8 | b[2] << 16 | (uint32_t)b[3] << 24;
+      v.y = b[4] | b[5] << 8 | b[6] << 16 | (uint32_t)b[7] << 24;
+      v.z = b[8] | b[9] << 8 | b[10] << 16 | (uint32_t)b[11] << 24;
+      v.w = b[12] | b[13] << 8 | b[14] << 16 | (uint32_t)b[15] << 24;
+    }
+    reinterpret_cast<uint4*>(win)[j] = v;
+  }
+  return blo;
+}
+
+// table index of state baseline + bits, clamped into the table as the
+// plain version clamps baseline + bits in int64: bits at or above 2^30 put
+// the sum past any table (the wrapper takes tables of at most 2^16 states)
+__device__ __forceinline__ int state_index(int32_t e, uint32_t bits,
+                                           int width) {
+  const int s = (e >> 16) + (int)min(bits, 1u << 30);
+  return min(max(s, 0), width - 1);
+}
+
+// shared memory of one block: LL and ML tables as (entry, base | extra << 24)
+// pairs, the OF table, the record ring, the stream window
+struct Smem {
+  uint2* ll;
+  uint2* ml;
+  int32_t* of;
+  int32_t* ring;  // ll [kRing], ml [kRing], of [kRing]
+  uint8_t* win;
 };
 
-__device__ __forceinline__ Fse fse_row(const int32_t* tables, int width,
-                                       int n_tables, int tid) {
-  int t = min(max(tid, 0), n_tables - 1);
-  return Fse{tables + (long long)t * width, width};
+__host__ __device__ inline size_t smem_bytes(int ll_w, int of_w, int ml_w) {
+  size_t n = 8 * (size_t)(ll_w + ml_w) + 4 * (size_t)of_w + 12 * kRing;
+  n = (n + 15) & ~(size_t)15;
+  return n + kWinAlloc;
 }
 
-__device__ __forceinline__ int32_t fse_entry(const Fse& f, long long state) {
-  long long s = state < 0 ? 0 : (state >= f.width ? f.width - 1 : state);
-  return f.row[s];
-}
-
-__global__ void seq_kernel(
-    const uint8_t* __restrict__ streams, long long ls, int n_lanes,
+__global__ void __launch_bounds__(32) seq_kernel(
+    const uint8_t* __restrict__ streams, long long ls,
     const int32_t* __restrict__ init_pos, const int32_t* __restrict__ nseq,
     const int32_t* __restrict__ ll_tid, const int32_t* __restrict__ of_tid,
     const int32_t* __restrict__ ml_tid, const int32_t* __restrict__ ll_tab,
@@ -75,83 +166,157 @@ __global__ void seq_kernel(
     const int32_t* __restrict__ trail_slot, int32_t* __restrict__ ll_out,
     int32_t* __restrict__ ml_out, int32_t* __restrict__ of_out,
     long long seq_w, int n_frames, uint8_t* __restrict__ frame_ok) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= n_lanes) return;
-  int n = nseq[b];
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int n = nseq[b];
   if (n <= 0) return;
-  int lt = min(max(ll_tid[b], 0), n_ll - 1);
-  int ot = min(max(of_tid[b], 0), n_of - 1);
-  int mt = min(max(ml_tid[b], 0), n_ml - 1);
-  Fse fll = fse_row(ll_tab, ll_w, n_ll, lt);
-  Fse fof = fse_row(of_tab, of_w, n_of, ot);
-  Fse fml = fse_row(ml_tab, ml_w, n_ml, mt);
-  int ll_log = min(max(ll_logs[lt], 0), 32);
-  int of_log = min(max(of_logs[ot], 0), 32);
-  int ml_log = min(max(ml_logs[mt], 0), 32);
 
-  RevBitReader rd(streams + (long long)b * ls, ls);
-  long long p = init_pos[b];
-  bool ok = p >= 0;
-  long long s_ll = rd.read(p, ll_log);
-  p -= ll_log;
-  long long s_of = rd.read(p, of_log);
-  p -= of_log;
-  long long s_ml = rd.read(p, ml_log);
-  p -= ml_log;
-  ok = ok && p >= 0;
+  Smem sm;
+  sm.ll = reinterpret_cast<uint2*>(smem_raw);
+  sm.ml = sm.ll + ll_w;
+  sm.of = reinterpret_cast<int32_t*>(sm.ml + ml_w);
+  sm.ring = sm.of + of_w;
+  size_t head = 8 * (size_t)(ll_w + ml_w) + 4 * (size_t)of_w + 12 * kRing;
+  sm.win = smem_raw + ((head + 15) & ~(size_t)15);
 
-  int f = min(max(dst_frame[b], 0), n_frames - 1);
-  long long dst = (long long)f * seq_w;
-  long long d0 = dst_off[b];
-  long long used = 0;
-  for (int k = 0; k < n; ++k) {
-    int32_t e_of = fse_entry(fof, s_of);
-    int32_t e_ml = fse_entry(fml, s_ml);
-    int32_t e_ll = fse_entry(fll, s_ll);
-    int ofc = e_of & 0xFF, mlc = e_ml & 0xFF, llc = e_ll & 0xFF;
-    bool code_ok = ofc <= 31 && mlc <= 52 && llc <= 35;
-    ofc = min(ofc, 31);
-    mlc = min(mlc, 52);
-    llc = min(llc, 35);
-
-    uint32_t ofx = rd.read(p, ofc);
-    p -= ofc;
-    int32_t ofv = (int32_t)((1u << ofc) + ofx);
-    int mlb = kMLExtra[mlc];
-    int32_t ml = kMLBase[mlc] + (int32_t)rd.read(p, mlb);
-    p -= mlb;
-    int llb = kLLExtra[llc];
-    int32_t ll = kLLBase[llc] + (int32_t)rd.read(p, llb);
-    p -= llb;
-
-    if (k < n - 1) {
-      int nb = min((e_ll >> 8) & 0xFF, 32);
-      s_ll = (long long)(e_ll >> 16) + rd.read(p, nb);
-      p -= nb;
-      nb = min((e_ml >> 8) & 0xFF, 32);
-      s_ml = (long long)(e_ml >> 16) + rd.read(p, nb);
-      p -= nb;
-      nb = min((e_of >> 8) & 0xFF, 32);
-      s_of = (long long)(e_of >> 16) + rd.read(p, nb);
-      p -= nb;
+  const int lt = min(max(ll_tid[b], 0), n_ll - 1);
+  const int ot = min(max(of_tid[b], 0), n_of - 1);
+  const int mt = min(max(ml_tid[b], 0), n_ml - 1);
+  {
+    const int32_t* src = ll_tab + (long long)lt * ll_w;
+    for (int i = lane; i < ll_w; i += 32) {
+      int32_t e = src[i];
+      int c = min(e & 0xFF, 35);
+      sm.ll[i] = make_uint2((uint32_t)e,
+                            (uint32_t)kLLBase[c] | (uint32_t)kLLExtra[c] << 24);
     }
-    ok = ok && p >= 0 && code_ok;
-
-    long long slot = d0 + k;
-    if (slot >= 0 && slot < seq_w) {
-      ll_out[dst + slot] = ll;
-      ml_out[dst + slot] = ml;
-      of_out[dst + slot] = ofv;
+    src = ml_tab + (long long)mt * ml_w;
+    for (int i = lane; i < ml_w; i += 32) {
+      int32_t e = src[i];
+      int c = min(e & 0xFF, 52);
+      sm.ml[i] = make_uint2((uint32_t)e,
+                            (uint32_t)kMLBase[c] | (uint32_t)kMLExtra[c] << 24);
     }
-    used += ll;
+    src = of_tab + (long long)ot * of_w;
+    for (int i = lane; i < of_w; i += 32) sm.of[i] = src[i];
   }
-  ok = ok && p == 0;
-  long long trailing = (long long)lit_total[b] - used;
-  ok = ok && trailing >= 0;
-  long long ts = trail_slot[b];
-  if (ts >= 0 && ts < seq_w)
-    ll_out[dst + ts] = (int32_t)(trailing > 0 ? trailing : 0);
-  if (!ok) frame_ok[f] = 0;
+  const uint8_t* row = streams + (long long)b * ls;
+  long long p = init_pos[b];
+  long long blo = load_window(sm.win, row, ls, p, lane);
+  const uint64_t* w64 = reinterpret_cast<const uint64_t*>(sm.win);
+  __syncwarp();
+
+  const int f = min(max(dst_frame[b], 0), n_frames - 1);
+  const long long dst = (long long)f * seq_w;
+  const long long d0 = dst_off[b];
+  int32_t* r_ll = sm.ring;
+  int32_t* r_ml = sm.ring + kRing;
+  int32_t* r_of = sm.ring + 2 * kRing;
+
+  // the chain's state, live in lane 0: the table indices of the three
+  // states. The position only falls, so "p >= 0 after every step" is
+  // "p == 0 at the end", checked there.
+  bool ok = p >= 0;
+  int i_ll = 0, i_of = 0, i_ml = 0;
+  long long used = 0;
+  int pr = (int)(p - 8 * blo);
+  if (lane == 0) {
+    int ll_log = min(max(ll_logs[lt], 0), 32);
+    int of_log = min(max(of_logs[ot], 0), 32);
+    int ml_log = min(max(ml_logs[mt], 0), 32);
+    i_ll = state_index(0, (uint32_t)read_at(w64, pr, ll_log), ll_w);
+    pr -= ll_log;
+    i_of = state_index(0, (uint32_t)read_at(w64, pr, of_log), of_w);
+    pr -= of_log;
+    i_ml = state_index(0, (uint32_t)read_at(w64, pr, ml_log), ml_w);
+    pr -= ml_log;
+  }
+  pr = __shfl_sync(kFull, pr, 0);
+
+  int k = 0;
+  while (true) {
+    const int kf = k;
+    if (lane == 0) {
+      const int k_end = min(n, kf + kRing);
+      while (k < k_end && pr >= kMinPr) {
+        const uint2 el = sm.ll[i_ll];
+        const uint2 em = sm.ml[i_ml];
+        const int32_t e_of = sm.of[i_of];
+        const int32_t e_ll = (int32_t)el.x, e_ml = (int32_t)em.x;
+        int ofc = e_of & 0xFF;
+        ok = ok && ofc <= 31 && (e_ml & 0xFF) <= 52 && (e_ll & 0xFF) <= 35;
+        ofc = min(ofc, 31);
+        const int mlb = (int)(em.y >> 24), llb = (int)(el.y >> 24);
+        const int t1 = ofc + mlb + llb;  // extra bits, read OF, ML, LL
+        // state update bits, LL, ML, OF; none after the last sequence
+        const bool upd = k < n - 1;
+        const int nl = upd ? min((e_ll >> 8) & 0xFF, 32) : 0;
+        const int nm = upd ? min((e_ml >> 8) & 0xFF, 32) : 0;
+        const int no = upd ? min((e_of >> 8) & 0xFF, 32) : 0;
+        const int t2 = nl + nm + no;
+
+        uint64_t ext;
+        uint32_t bl, bm, bo;
+        if (t1 + t2 <= 63) {  // one read: the extra bits above the states'
+          const uint64_t x = read_at(w64, pr, t1 + t2);
+          ext = x >> t2;
+          bl = low_bits(x >> (nm + no), nl);
+          bm = low_bits(x >> no, nm);
+          bo = low_bits(x, no);
+        } else {  // only with long codes or states wider than 21 bits
+          ext = read_at(w64, pr, t1);
+          bl = (uint32_t)read_at(w64, pr - t1, nl);
+          bm = (uint32_t)read_at(w64, pr - t1 - nl, nm);
+          bo = (uint32_t)read_at(w64, pr - t1 - nl - nm, no);
+        }
+        pr -= t1 + t2;
+        i_ll = state_index(e_ll, bl, ll_w);
+        i_ml = state_index(e_ml, bm, ml_w);
+        i_of = state_index(e_of, bo, of_w);
+        const int32_t ofv =
+            (int32_t)((1u << ofc) + (uint32_t)(ext >> (mlb + llb)));
+        const int32_t ml = (int32_t)(em.y & 0xFFFFFF) +
+                           (int32_t)low_bits(ext >> llb, mlb);
+        const int32_t ll =
+            (int32_t)(el.y & 0xFFFFFF) + (int32_t)low_bits(ext, llb);
+        r_ll[k - kf] = ll;
+        r_ml[k - kf] = ml;
+        r_of[k - kf] = ofv;
+        used += ll;
+        ++k;
+      }
+    }
+    k = __shfl_sync(kFull, k, 0);
+    pr = __shfl_sync(kFull, pr, 0);
+    __syncwarp();
+    for (int t = lane; t < k - kf; t += 32) {
+      long long slot = d0 + kf + t;
+      if (slot >= 0 && slot < seq_w) {
+        ll_out[dst + slot] = r_ll[t];
+        ml_out[dst + slot] = r_ml[t];
+        of_out[dst + slot] = r_of[t];
+      }
+    }
+    if (k >= n) break;
+    __syncwarp();
+    if (pr < kMinPr) {  // move the window down to the chain's position
+      p = 8 * blo + pr;
+      blo = load_window(sm.win, row, ls, p, lane);
+      pr = (int)(p - 8 * blo);
+      __syncwarp();
+    }
+  }
+  p = 8 * blo + pr;
+  if (lane == 0) {
+    ok = ok && p == 0;
+    long long trailing = (long long)lit_total[b] - used;
+    ok = ok && trailing >= 0;
+    long long ts = trail_slot[b];
+    if (ts >= 0 && ts < seq_w)
+      ll_out[dst + ts] = (int32_t)(trailing > 0 ? trailing : 0);
+    if (!ok) frame_ok[f] = 0;
+  }
 }
 
 }  // namespace
@@ -166,10 +331,14 @@ extern "C" int zt_sequence_lanes(
     const void* trail_slot, void* ll_out, void* ml_out, void* of_out,
     long long seq_w, int n_frames, void* frame_ok, void* stream) {
   if (n_lanes > 0) {
-    const int threads = 32;
-    int blocks = (n_lanes + threads - 1) / threads;
-    seq_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)streams, ls, n_lanes, (const int32_t*)init_pos,
+    size_t smem = smem_bytes(ll_w, of_w, ml_w);
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          seq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    seq_kernel<<<n_lanes, 32, smem, (cudaStream_t)stream>>>(
+        (const uint8_t*)streams, ls, (const int32_t*)init_pos,
         (const int32_t*)nseq, (const int32_t*)ll_tid,
         (const int32_t*)of_tid, (const int32_t*)ml_tid,
         (const int32_t*)ll_tab, ll_w, n_ll, (const int32_t*)of_tab, of_w,

@@ -8,6 +8,7 @@ launch per device stage over all live lanes:
             (ops/sequence.py)
   stage 2:  repeat-offset resolution and exact output lengths; the block
             groups of a chained frame compose their histories in order
+            (ops/sequence.py::resolve_frames)
   stage 3:  LZ77 execution of every single-group frame (ops/execute.py)
   stage 3a': with pull_outputs=False, the frame checksums on the device
             (ops/xxhash64.py)
@@ -39,10 +40,7 @@ from zstd_tpu_torch.models.framer import DeviceBatch, Framer
 from zstd_tpu_torch.ops.execute import execute_lanes
 from zstd_tpu_torch.ops.execute_window import execute_window
 from zstd_tpu_torch.ops.huffman import huffman_lanes
-from zstd_tpu_torch.ops.sequence import (apply_hist, compose_hist,
-                                         offsets_ok, resolve_offsets,
-                                         resolve_offsets_symbolic,
-                                         sequence_lanes)
+from zstd_tpu_torch.ops.sequence import resolve_frames, sequence_lanes
 from zstd_tpu_torch.ops.xxhash64 import xxh64_low32_lanes
 from zstd_tpu_torch.utils.xxhash64 import xxhash64 as _host_xxh64
 
@@ -114,36 +112,21 @@ def chain_plan(batch) -> dict | None:
                 first=[m.rows[0] for m in chained])
 
 
-def _lengths(ll_full, ml_full):
-    return (ll_full.long() + ml_full.long()).sum(dim=1).to(torch.int32)
-
-
 def _resolve(ll_full, ml_full, of_full, is_real, init_hist):
-    """Stage 2: offsets, exact output lengths and ok per frame row."""
-    offsets, ok = resolve_offsets(ll_full, of_full, is_real, init_hist)
-    return offsets, _lengths(ll_full, ml_full), ok
+    """Stage 2: offsets, exact output lengths and ok per frame row
+    (ops/sequence.py::resolve_frames)."""
+    return resolve_frames(ll_full, ml_full, of_full, is_real, init_hist)
 
 
 def _resolve_chained(ll_full, ml_full, of_full, is_real, init_hist, rows,
                      cont):
-    """Stage 2 when the batch holds chained frames: every row resolves
-    symbolically, then a loop over chain position (vectorised over chains,
-    rows (C, K)) carries each group's outgoing history into the next group
-    (`cont` marks those rows), and the offsets materialise. The same
-    outputs as zstd_tpu/models/batch_decoder.py::_resolve_chained, whose
-    scan runs over every row instead."""
-    tag, val, tt, tv = resolve_offsets_symbolic(ll_full, of_full, is_real)
-    hist = init_hist.to(torch.int32).clone()
-    h = hist[rows[:, 0].long()]
-    for k in range(1, rows.shape[1]):
-        prev, cur = rows[:, k - 1].long(), rows[:, k].long()
-        h = compose_hist(tt[prev], tv[prev], h)
-        # padding entries point at the inert row, which is never a
-        # continuation: they write its own history back
-        hist[cur] = torch.where(cont[cur][:, None], h, hist[cur])
-    offsets = apply_hist(tag, val, hist)
-    return (offsets, _lengths(ll_full, ml_full),
-            offsets_ok(offsets, of_full, is_real))
+    """Stage 2 when the batch holds chained frames: each chain's groups
+    (rows (C, K)) carry their outgoing history into the next group (`cont`
+    marks those rows). The same outputs as
+    zstd_tpu/models/batch_decoder.py::_resolve_chained, whose scan runs
+    over every row instead."""
+    return resolve_frames(ll_full, ml_full, of_full, is_real, init_hist,
+                          rows, cont)
 
 
 class BatchDecoder:
@@ -174,8 +157,9 @@ class BatchDecoder:
     def stage(self, batch) -> dict:
         """Upload the batch's arrays to the device once; returns the staged
         dict. Also stages the per-run index arrays (the executed frame rows
-        and their checksum fields) and the chain plan (chain_plan()), so
-        repeated runs (serving) upload nothing."""
+        and their checksum fields), the single-group executor's output
+        width (pow2 of its rows' own bounds, `exec_width`) and the chain
+        plan (chain_plan()), so repeated runs (serving) upload nothing."""
         dev = self.device
         host = {name: np.asarray(getattr(batch, name))
                 for name in _LANE + _FRAME}
@@ -192,6 +176,10 @@ class BatchDecoder:
               if len(m.rows) == 1 and m.checksum is not None
               and m.ok and not m.fallback}
         host["exec_rows"] = np.asarray(rows, np.int32)
+        # the single-group executor's width: its own rows' bounds, not the
+        # batch's widest (a chained frame's bound would inflate every row)
+        exec_width = framer_mod._round_pow2(
+            int(np.max(np.asarray(batch.out_len)[rows], initial=1)))
         host["ck_has"] = np.asarray([r in ck for r in rows], bool)
         host["ck_exp"] = np.asarray([ck.get(r, (0, 0))[0] for r in rows],
                                     np.int64)
@@ -203,6 +191,7 @@ class BatchDecoder:
         d = {name: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
              for name, v in host.items()}
         d["exec_rows_list"] = rows
+        d["exec_width"] = exec_width
         d["chains"] = None if plan is None else {
             k: plan[k] for k in ("base", "width", "first")}
         return d
@@ -265,7 +254,7 @@ class BatchDecoder:
             with scope("lz77_execute"):
                 out, exec_ok = execute_lanes(ll_full, ml_full, offsets,
                                              lit_full, out_len, rows,
-                                             batch.out_width)
+                                             d["exec_width"])
             ok_rows = ok_dev[rows_l] & exec_ok
             if self.verify_checksums and not pull_outputs:
                 # serving mode never reaches _postprocess's host xxh64:

@@ -26,7 +26,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "zstd_tpu_torch")
 NAMES = ("huffman", "sequence", "execute", "xxhash64", "execute_window",
-         "parse", "fse_encode")
+         "parse", "fse_encode", "resolve")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -54,6 +54,9 @@ SIGNATURES = {
     "fse_encode": ("zt_fse_encode",
                    [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _LL, _P,
                     _P]),
+    "resolve": ("zt_resolve_frames",
+                [_P, _P, _P, _P, _LL, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P,
+                 _P, _P, _P]),
 }
 
 _fns = {}

@@ -17,11 +17,13 @@ runs the CUDA kernel (csrc/sequence.cu) for CUDA tensors and
     the position stays >= 0 with valid codes (of <= 31, ml <= 52,
     ll <= 35), ends at exactly 0, and the trailing run is >= 0.
 
-`resolve_offsets` is the repeat-offset resolution (sequence_execution.rs:
-59-115) over frame lanes, plain torch on every device: symbolic resolution
-(`resolve_offsets_symbolic`) followed by `apply_hist`. Chained block groups
-compose their histories in between (models/batch_decoder.py,
-_resolve_chained).
+`resolve_frames` is stage 2, the repeat-offset resolution
+(sequence_execution.rs:59-115) of every frame row with its exact output
+length and ok flag. It runs the CUDA kernel (csrc/resolve.cu) for CUDA
+tensors and `resolve_frames_plain` for CPU tensors. The plain version is
+`resolve_offsets` (symbolic resolution, `resolve_offsets_symbolic`,
+followed by `apply_hist`); with chained block groups each group's incoming
+history is composed along its chain in between (`compose_hist`).
 """
 
 import numpy as np
@@ -168,6 +170,9 @@ def sequence_lanes(streams, init_pos, nseq, ll_tid, of_tid, ml_tid,
         _kernels.require(logs, f"{name}_logs", torch.int32, 1, dev)
         if logs.shape[0] != tabs.shape[0]:
             raise ValueError(f"{name}_logs: one entry per table expected")
+        if not 0 < tabs.shape[1] <= 1 << 16:
+            raise ValueError(f"{name}_tables: {tabs.shape[1]} states a "
+                             f"table, the kernel takes 1 to 65536")
     for name, t in (("ll_out", ll_out), ("ml_out", ml_out),
                     ("of_out", of_out)):
         _kernels.require(t, name, torch.int32, 2, dev)
@@ -313,3 +318,90 @@ def offsets_ok(offsets, ofv, is_real):
     of_value <= 0."""
     bad = is_real & ((offsets <= 0) | (ofv <= 0))
     return ~bad.any(dim=1)
+
+
+def row_lengths(ll, ml):
+    """(B,) i32: each row's sum of ll + ml, wrapped to int32."""
+    return (ll.long() + ml.long()).sum(dim=1).to(torch.int32)
+
+
+def resolve_frames_plain(ll, ml, ofv, is_real, init_hist, chain_rows=None,
+                         chain_cont=None):
+    """Plain torch version of the kernel (same arguments, same result).
+
+    With chains, every row resolves symbolically, then a loop over chain
+    position (vectorised over chains) carries each group's outgoing history
+    into the next group, and the offsets materialise."""
+    if chain_rows is None:
+        offsets, ok = resolve_offsets(ll, ofv, is_real, init_hist)
+        return offsets, row_lengths(ll, ml), ok
+    tag, val, tt, tv = resolve_offsets_symbolic(ll, ofv, is_real)
+    hist = init_hist.to(torch.int32).clone()
+    h = hist[chain_rows[:, 0].long()]
+    for k in range(1, chain_rows.shape[1]):
+        prev, cur = chain_rows[:, k - 1].long(), chain_rows[:, k].long()
+        h = compose_hist(tt[prev], tv[prev], h)
+        # padding entries point at the inert row, which is never a
+        # continuation: they write its own history back
+        hist[cur] = torch.where(chain_cont[cur][:, None], h, hist[cur])
+    offsets = apply_hist(tag, val, hist)
+    return (offsets, row_lengths(ll, ml),
+            offsets_ok(offsets, ofv, is_real))
+
+
+RESOLVE_SEGMENT = 1024  # slots per warp of the resolve kernel
+
+
+def resolve_frames(ll, ml, ofv, is_real, init_hist, chain_rows=None,
+                   chain_cont=None):
+    """Stage 2: (offsets (B, S) i32, out_len (B,) i32, ok (B,) bool) of
+    every frame row.
+
+    ll, ml, ofv (B, S) i32; is_real (B, S) bool; init_hist (B, 3) i32.
+    With chained block groups, chain_rows (C, K) i32 lists each chain's
+    rows in order (padded with a row that chain_cont never marks) and
+    chain_cont (B,) bool marks the rows whose incoming history is the
+    previous row's outgoing one rather than their own init_hist."""
+    if not _kernels.on_cuda(ll):
+        return resolve_frames_plain(ll, ml, ofv, is_real, init_hist,
+                                    chain_rows, chain_cont)
+    dev = ll.device
+    B, S = ll.shape
+    for name, t, dtype in (("ll", ll, torch.int32), ("ml", ml, torch.int32),
+                           ("ofv", ofv, torch.int32),
+                           ("is_real", is_real, torch.bool)):
+        _kernels.require(t, name, dtype, 2, dev)
+        if t.shape != ll.shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} differs")
+    _kernels.require(init_hist, "init_hist", torch.int32, 2, dev)
+    if tuple(init_hist.shape) != (B, 3):
+        raise ValueError(f"init_hist: shape {tuple(init_hist.shape)}, "
+                         f"expected {(B, 3)}")
+    offsets = torch.empty((B, S), dtype=torch.int32, device=dev)
+    out_len = torch.empty(B, dtype=torch.int32, device=dev)
+    ok = torch.empty(B, dtype=torch.bool, device=dev)
+    C = K = 0
+    hist = None
+    if chain_rows is not None:
+        _kernels.require(chain_rows, "chain_rows", torch.int32, 2, dev)
+        _kernels.require(chain_cont, "chain_cont", torch.bool, 1, dev)
+        if chain_cont.shape[0] != B:
+            raise ValueError("chain_cont: one entry per frame row expected")
+        C, K = chain_rows.shape
+        if C and K:
+            hist = init_hist.clone()
+        else:
+            chain_rows = None
+    # one 16-byte transform per warp task of RESOLVE_SEGMENT slots
+    segt = torch.empty((B * -(-S // RESOLVE_SEGMENT), 4), dtype=torch.int32,
+                       device=dev)
+    _kernels.launch("resolve", ll, ml, ofv, is_real, S, B, init_hist,
+                    chain_rows, C, K, chain_cont, RESOLVE_SEGMENT, segt, hist,
+                    offsets, out_len, ok)
+    resolve_frames.launches += 1
+    resolve_frames.last_cuda_launches = 3 if hist is not None else 2
+    return offsets, out_len, ok
+
+
+resolve_frames.launches = 0
+resolve_frames.last_cuda_launches = 0
