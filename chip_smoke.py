@@ -12,7 +12,10 @@ phase raises on failure, so any failure exits non-zero:
   3. kernels against their plain torch versions on a small real batch
      (32 frames of 16 KiB from the package's own encoder, one of them
      corrupted) and hand-made LZ77 regimes; the decoded batch against the
-     payloads and the host oracle
+     payloads and the host oracle; the executor on random records (bad
+     rows included), a 1 MiB single-group frame beside 16 KiB ones and
+     2048 rows at its smallest ring; the checksum on lengths 0-33 to
+     128 KiB from aligned and unaligned starts
   4. main path: 1024 frames of 128 KiB (make_corpus(128)), FASTEST with
      checksums, through BatchDecoder().decode_frames (every byte checked,
      no frame on the host; Huffman, sequence, resolve and execute
@@ -23,7 +26,8 @@ phase raises on failure, so any failure exits non-zero:
      times from a torch.profiler capture of run_device's trace scopes
   6. each kernel at the main path's shapes on the main path's inputs:
      bit-equal to its plain version, both timed, beside its bound (the
-     executor at the staged width of its own rows)
+     executor at the staged width of its own rows); the executor's match
+     rounds per chunk of 32 records
   7. small chained batch: three 2.5 MiB frames (two block groups each),
      the committed dictionary frames (zstd_tpu_torch/testdata) and a
      2.5 MiB frame broken in its second group; the window kernel bit-equal
@@ -33,7 +37,8 @@ phase raises on failure, so any failure exits non-zero:
      8 MiB window, about 5 block groups each) through decode_frames (every
      byte checked, no frame on the host) and one serving run, whose window
      kernel launches the kernels line reports; a warm-up, 5 timed serving
-     runs and per-stage device times, as in 5; the accumulator's size
+     runs and per-stage device times, as in 5; the chain width groups and
+     their accumulators' size
   9. far window: one 12 MiB frame at window_log 24 (bench.py's bigwindow
      body) decoded and timed; how many resolved matches reach past 8 MiB
  10. the window kernel at the chained path's shapes on its inputs, and on
@@ -218,13 +223,15 @@ def kernel_cases(d):
         "xxhash64": (list, call_xxh, xxhash64.xxh64_low32_lanes,
                      xxhash64.xxh64_low32_lanes_plain),
     }
-    return cases, dict(ll=ll, ml=ml, out_len=out_len, length=length)
+    return cases, dict(ll=ll, ml=ml, out_len=out_len, length=length,
+                       lit=lit, offsets=offsets)
 
 
 def window_case(d):
     """(setup, call, kernel, plain) of the window kernel on the staged
-    batch `d` (which holds chained frames), its inputs what the stages
-    before it produce, plus those inputs."""
+    batch `d` (which holds chained frames): one call per width group of
+    its chain plan, each into its own accumulator, the inputs what the
+    stages before it produce; plus those inputs."""
     import torch
 
     from zstd_tpu_torch.models.batch_decoder import _resolve_chained
@@ -234,20 +241,25 @@ def window_case(d):
     offsets, out_len, _ = _resolve_chained(
         ll, ml, of, d["is_real"], d["init_hist"], d["chain_rows"],
         d["chain_row_cont"])
-    ch = d["chains"]
+    groups = d["chains"]
 
     def setup():
-        acc = torch.zeros((d["chain_rows"].shape[0], ch["width"]),
-                          dtype=torch.uint8, device=lit.device)
-        if ch["base"]:
-            acc[:, :ch["base"]] = d["chain_prefill"]
-        return [acc]
+        accs = []
+        for g in groups:
+            acc = torch.zeros((len(g["first"]), g["width"]),
+                              dtype=torch.uint8, device=lit.device)
+            if g["base"]:
+                acc[:, :g["base"]] = g["prefill"]
+            accs.append(acc)
+        return accs
 
     def call(fn, bufs):
-        written, ok = fn(ll, ml, offsets, lit, out_len, d["row_lit_len"],
-                         d["chain_rows"], bufs[0], ch["base"],
-                         d["chain_hist0"], d["chain_cap"])
-        return [bufs[0], written, ok]
+        outs = []
+        for g, acc in zip(groups, bufs):
+            written, ok = fn(ll, ml, offsets, lit, out_len, d["row_lit_len"],
+                             g["rows"], acc, g["base"], g["hist0"], g["cap"])
+            outs += [acc, written, ok]
+        return outs
 
     return ((setup, call, ew.execute_window, ew.execute_window_plain),
             dict(ll=ll, ml=ml, offsets=offsets, out_len=out_len))
@@ -342,6 +354,55 @@ def _regimes(device):
     return t, rows, [True] * 6 + [False, False]
 
 
+def random_records(seed: int, B: int = 24, S: int = 160, lit_w: int = 6000):
+    """execute_lanes' inputs as numpy arrays (records (3, B, S) i32, lit,
+    out_len, out_w, and {row: a literal width that starves it}): rows of
+    random records: short and long literal runs, offsets 1, 2, small and
+    reaching the row start, self-overlapping fills, matches over the
+    kernel's 64-byte long-run threshold and over its 1 KiB piece,
+    zero-length records; the last rows broken in one way each (a bad
+    offset, offset 0, a negative length, out_len off by one, too few
+    literals, out_len past the width)."""
+    rng = np.random.default_rng(seed)
+    rec = np.zeros((3, B, S), np.int32)
+    lit = rng.integers(0, 256, (B, lit_w)).astype(np.uint8)
+    for b in range(B):
+        written = lp = 0
+        for i in range(S):
+            c = rng.random()
+            if c < 0.1:
+                continue  # a zero-length gap
+            l = int(rng.integers(0, 4) if rng.random() < 0.8
+                    else rng.integers(60, 300))
+            l = min(l, lit_w - lp)
+            hi = written + l
+            m = 0
+            if hi:
+                m = int(rng.choice([rng.integers(3, 20), rng.integers(60, 70),
+                                    rng.integers(1000, 2500)],
+                                   p=[0.85, 0.1, 0.05]))
+            k = rng.random()
+            o = (1 if k < 0.1 else 2 if k < 0.15 else hi if k < 0.25
+                 else int(rng.integers(1, min(hi, 40) + 1)) if k < 0.7
+                 else int(rng.integers(1, hi + 1))) if hi else 0
+            o = min(o, hi)
+            if o == 0:
+                m = 0
+            rec[:, b, i] = (l, m, o)
+            written, lp = hi + m, lp + l
+    n = B - 1
+    rec[1, n, 5] = max(rec[1, n, 5], 5)                           # offset
+    rec[2, n, 5] = int(rec[:2, n, :5].sum() + rec[0, n, 5]) + 1   # too far
+    rec[1, n - 1, 3], rec[2, n - 1, 3] = 5, 0                     # offset 0
+    rec[0, n - 2, 7] = -1                                         # negative
+    out_len = (rec[0].astype(np.int64) + rec[1]).sum(axis=1).astype(np.int32)
+    out_len[n - 3] += 1                                           # total off
+    lit_short = int(rec[0, n - 4].sum()) - 1                      # literals
+    out_w = int(out_len.max()) + 32
+    out_len[n - 5] = out_w + 1                                    # too wide
+    return rec, lit, out_len, out_w, {n - 4: lit_short}
+
+
 def phase_small():
     import torch
 
@@ -387,6 +448,79 @@ def phase_small():
     say(f"kernels vs plain versions: bit-equal on {len(frames)} x 16 KiB "
         f"frames (one corrupted: {'None' if res[5] is None else 'decoded'})"
         f" and {len(want)} execute regimes")
+    phase_exec_checks(payloads[:8])
+
+
+def phase_exec_checks(small_payloads):
+    """The execute and checksum kernels beyond the main path's shapes:
+    random records (long runs, fills, six kinds of bad row); a single-group
+    frame of 1 MiB beside 16 KiB frames (the large row reads most sources
+    back from its output row) and the 16 KiB rows given 2048 times over
+    (an 8 KiB ring); checksums of lengths 0-33 up to 128 KiB from aligned
+    and unaligned starts. Each bit-equal to its plain version."""
+    import torch
+
+    from zstd_tpu_torch.common.config import CompressionLevel
+    from zstd_tpu_torch.encoding.frame_enc import compress_to_vec
+    from zstd_tpu_torch.models.batch_decoder import BatchDecoder
+    from zstd_tpu_torch.ops import execute, xxhash64
+
+    dev = torch.device("cuda")
+    rows_ok = []
+    for seed in (1, 2, 3):
+        rec, lit, out_len, out_w, short = random_records(seed)
+        (_, n), = short.items()
+        for lit_w in (lit.shape[1], n):
+            t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (rec[0], rec[1], rec[2], lit[:, :lit_w], out_len)]
+            rows = torch.arange(rec.shape[1], dtype=torch.int32, device=dev)
+            compare("execute (random records)", list,
+                    lambda fn, _: list(fn(*t, rows, out_w)),
+                    execute.execute_lanes, execute.execute_lanes_plain)
+            rows_ok.append(int(execute.execute_lanes(*t, rows, out_w)[1]
+                               .sum()))
+    need(max(rows_ok) <= 19, "execute random records: a broken row passed")
+
+    big = b"".join(make_corpus(1, frame_kb=1024, seed=2))
+    payloads = [big] + list(small_payloads)
+    frames = [bytes(compress_to_vec(p, CompressionLevel.FASTEST))
+              for p in payloads]
+    dec = BatchDecoder()
+    batch = dec.prepare(frames)
+    need(all(len(m.rows) == 1 for m in batch.metas),
+         "1 MiB frame: not single-group")
+    d = dec.stage(batch)
+    cases, inputs = kernel_cases(d)
+    for name in ("execute", "xxhash64"):
+        compare(f"{name} (1 MiB frame)", *cases[name])
+    small = d["exec_rows"][1:].repeat(2048 // (len(payloads) - 1) + 1)[:2048]
+    width = 1 << (max(len(p) for p in small_payloads) - 1).bit_length()
+    args = [inputs[k] for k in ("ll", "ml", "offsets", "lit", "out_len")]
+    compare("execute (16 KiB rows x 2048)", list,
+            lambda fn, _: list(fn(*args, small, width)),
+            execute.execute_lanes, execute.execute_lanes_plain)
+    need(dec.decode_frames(frames) == payloads and dec.host_frames == 0,
+         "1 MiB frame batch: decoded bytes differ")
+
+    rng = np.random.default_rng(6)
+    lengths = list(range(34)) + [63, 64, 1023, 1024, 1025, 4103, 1 << 17]
+    for extra in (64, 101):
+        W = (1 << 17) + extra
+        data = torch.from_numpy(rng.integers(
+            0, 256, (2 * len(lengths), W), dtype=np.uint8)).to(dev)
+        length = torch.tensor(lengths * 2, dtype=torch.int32, device=dev)
+        start = torch.from_numpy(np.concatenate([
+            np.zeros(len(lengths), np.int32),
+            rng.integers(1, 64, len(lengths)).astype(np.int32)])).to(dev)
+        compare("xxhash64 (lengths, starts)", list,
+                lambda fn, _: [fn(data, length, start)],
+                xxhash64.xxh64_low32_lanes, xxhash64.xxh64_low32_lanes_plain)
+    say(f"execute: bit-equal on random records (3 seeds, 2 literal widths, "
+        f"ok rows {rows_ok}), a {len(big)}-byte single-group frame beside "
+        f"{len(small_payloads)} x 16 KiB (exec width {d['exec_width']}) and "
+        f"2048 rows of 16 KiB; xxhash64: bit-equal on {len(lengths)} lengths"
+        f" (0-33 to 131072) from aligned and unaligned starts, aligned and "
+        f"unaligned rows")
 
 
 def _counters():
@@ -602,6 +736,7 @@ def _bounds(batch, d, inputs):
 def phase_kernels(batch, staged, launches):
     import torch
 
+    from zstd_tpu_torch.ops import execute
     from zstd_tpu_torch.ops.sequence import resolve_frames
 
     cases, inputs = kernel_cases(staged)
@@ -632,6 +767,12 @@ def phase_kernels(batch, staged, launches):
             + (f", {resolve_frames.last_cuda_launches} CUDA launches per call"
                if name == "resolve" else ""))
         torch.cuda.empty_cache()
+    setup, call, kern, _ = cases["execute"]
+    call(kern, setup())
+    st = execute.rounds_stats()
+    say(f"kernel execute: match rounds per chunk of 32 records on the main "
+        f"batch: mean {st['mean']:.4f}, max {st['max']}, {st['chunks']} "
+        f"chunks")
     return rows
 
 
@@ -754,15 +895,15 @@ def phase_chained():
     for k in ("huffman", "sequence", "resolve", "execute_window"):
         need(decode_launches[k] > 0 and launches[k] > 0,
              f"chained path: kernel {k} was not launched")
-    ch = staged["chains"]
-    C = staged["chain_rows"].shape[0]
+    widths = [g["width"] for g in staged["chains"]]
+    acc_bytes = sum(len(g["first"]) * g["width"] for g in staged["chains"])
     window = batch.metas[0].window
     say(f"chained path: window {window} bytes, block groups per frame "
         f"{min(groups)}-{max(groups)}, {int((batch.huff_nsym > 0).sum())} "
         f"Huffman lanes, {int((batch.seq_n > 0).sum())} sequence lanes, "
         f"{int(batch.seq_n.sum())} sequences (longest lane "
-        f"{int(batch.seq_n.max())}), accumulator {ch['width']} "
-        f"bytes per chain, {C * ch['width']} bytes in all")
+        f"{int(batch.seq_n.max())}), {len(widths)} chain width group(s) "
+        f"of accumulator widths {widths} bytes, {acc_bytes} bytes in all")
     say(f"chained path: host prepare {t_prepare * 1e3:.3f} ms, stage "
         f"{t_stage * 1e3:.3f} ms, decode_frames {t_decode:.2f} s, all "
         f"{len(frames)} frames byte-exact, host_frames 0, launches "
@@ -815,7 +956,7 @@ def phase_far():
         f"{int(batch.seq_n.sum())} sequences (longest lane "
         f"{int(batch.seq_n.max())})")
     phase_serving(dec, batch, d, len(body), label="far serving", runs=3)
-    need(d["chain_cap"].tolist() == [m.window],
+    need([int(c) for g in d["chains"] for c in g["cap"]] == [m.window],
          "far: the chain's cap is not the real window")
     return d
 
@@ -827,7 +968,7 @@ def _window_bound(d, inputs, written):
     over the ALU rate, whichever is larger."""
     import torch
 
-    rows = d["chain_rows"].long().flatten()
+    rows = torch.cat([g["rows"].long().flatten() for g in d["chains"]])
     run = (inputs["ll"] + inputs["ml"])[rows] > 0
     idx = torch.arange(1, run.shape[1] + 1, device=run.device)[None, :]
     records = int(torch.where(run, idx, 0).max(dim=1).values.sum())
@@ -904,6 +1045,8 @@ def _window_run(label, staged):
 
     from zstd_tpu_torch.ops import execute_window as ew
 
+    need(len(staged["chains"]) == 1,
+         f"{label}: {len(staged['chains'])} chain width groups, expected 1")
     case, inputs = window_case(staged)
     err = compare(f"execute_window ({label})", *case)
     setup, call, kern, plain = case

@@ -213,9 +213,10 @@ def test_tiny_caps_frame_chains_in_both_packages(chained, port_batch):
     plan = bd.chain_plan(got)
     far = [int(m.window) for m in bd.chained_metas(got)
            if m.window > STREAM_WINDOW_CAP]
-    assert sorted(int(c) for c in plan["cap"] if c > STREAM_WINDOW_CAP) \
-        == sorted(far)
-    assert plan["hist0"].max() == plan["base"] > 0
+    caps_ = [int(c) for g in plan["groups"] for c in g["cap"]]
+    assert sorted(c for c in caps_ if c > STREAM_WINDOW_CAP) == sorted(far)
+    assert max(int(g["hist0"].max()) for g in plan["groups"]) == \
+        max(g["base"] for g in plan["groups"]) > 0
 
 
 def _stages(d):
@@ -290,7 +291,8 @@ def test_resolve_frames_matches_reference_on_sub_batches(chained, name):
     if name == "far":
         from zstd_tpu_torch.models.framer import STREAM_WINDOW_CAP
 
-        assert int(d["chain_cap"].max()) > STREAM_WINDOW_CAP
+        assert max(int(g["cap"].max()) for g in d["chains"]) > \
+            STREAM_WINDOW_CAP
 
 
 def test_single_group_rows_execute_at_their_own_width(chained, port_batch):
@@ -550,6 +552,62 @@ def test_serving_handles_give_the_same_bytes(chained, port_batch):
                 t, i = outputs[r]
                 got = t[i, m.dict_skip:int(out_len[r])]
             assert got.numpy().tobytes() == p, k
+    assert dec.host_frames == 0
+
+
+def test_chains_execute_in_width_groups(chained, port_batch, monkeypatch):
+    """One long chained frame beside several short ones: each width group
+    of chains gets its own window call and accumulator, whose bytes sum to
+    less than every chain at the widest width; the batch decodes to the
+    payloads and the oracle's bytes, its serving handles give the same
+    bytes, and the resolution keeps the whole batch's rows."""
+    frames, payloads, dict_bytes, kinds = chained
+    dec, batch = port_batch
+    plan = bd.chain_plan(batch)
+    groups = plan["groups"]
+    C = plan["rows"].shape[0]
+    assert len(groups) > 1
+    assert sum(len(g["first"]) for g in groups) == C
+    for g in groups:
+        assert g["rows"].shape[0] == g["hist0"].shape[0] == len(g["first"])
+        assert g["prefill"].shape == (len(g["first"]), g["base"])
+        assert g["base"] == int(g["hist0"].max())
+    by_first = {m.rows[0]: m for m in bd.chained_metas(batch)}
+    keys = [{1 << (len(by_first[r].dict_prefill) - 1 + sum(
+        int(batch.out_len[x]) for x in by_first[r].rows)).bit_length()
+        for r in g["first"]} for g in groups]
+    assert all(len(k) == 1 for k in keys)
+    assert len(set.union(*keys)) == len(groups)
+    widths = [g["width"] for g in groups]
+    assert widths == sorted(widths) and widths[0] < widths[-1]
+    assert sum(len(g["first"]) * g["width"] for g in groups) < \
+        C * max(widths)
+    first_rows = sorted(r for g in groups for r in g["first"])
+    assert first_rows == sorted(int(r) for r in plan["rows"][:, 0])
+
+    calls = []
+    real = ew.execute_window
+
+    def recorder(*args, **kw):
+        calls.append(args[7].shape)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(bd, "execute_window", recorder)
+    got = dec.decode_frames(frames)
+    staged = dec.stage(batch)
+    outputs, out_len, ok = dec.run_device(batch, staged, pull_outputs=False)
+    assert calls == [(len(g["first"]), g["width"]) for g in groups] * 2
+    assert staged["chain_rows"].shape == plan["rows"].shape
+    for i, (f, p) in enumerate(zip(frames, payloads)):
+        assert got[i] == p == _oracle(f, dict_bytes), kinds[i]
+    for m, p, k in zip(batch.metas, payloads, kinds):
+        r = m.rows[0]
+        if p is None or len(outputs[r]) != 3:
+            continue
+        acc, lane, base = outputs[r]
+        assert bool(ok[r]), k
+        assert acc[lane, base:base + int(out_len[r])].numpy().tobytes() \
+            == p, k
     assert dec.host_frames == 0
 
 

@@ -256,6 +256,56 @@ def test_device_matcher_keeps_one_batch():
     assert dm.find(b"") == []
 
 
+def _word_block(n: int, seed: int) -> bytes:
+    rng = np.random.default_rng(seed)
+    words = [b"alpha", b"beta", b"gamma", b"delta", b"epsilon", b"zeta"]
+    return b" ".join(words[i] for i in rng.integers(0, 6, n // 4 + 1))[:n]
+
+
+MATCHER_BATCHES = {
+    # 1 KiB, 3 KiB and 100 KiB blocks: three widths, one round each
+    "mixed_widths": [_word_block(n, s) for s, n in enumerate(
+        [1024, 700, 3072, 2500, 100 << 10, 1024])],
+    # more than 512 blocks of one width, beside a few of the next one
+    "over_512_lanes": [_word_block(900 + s % 100, s) for s in range(530)]
+    + [_word_block(1500 + s, 1000 + s) for s in range(6)],
+}
+
+
+@pytest.mark.parametrize("name", sorted(MATCHER_BATCHES))
+def test_device_matcher_rounds_by_width(name, monkeypatch):
+    """Blocks go in rounds of at most 512 lanes, each at the pow2 width of
+    its own blocks (at least 1024), and the records equal a one-call parse
+    of the whole batch at its widest width."""
+    from zstd_tpu_torch.encoding import device_matcher
+
+    blocks = MATCHER_BATCHES[name]
+    ll, ml, of, nseq, anchor = match_finder.parse_blocks(
+        *device_matcher.block_lanes(blocks, CPU))
+    want = {b: device_matcher._to_sequences(
+        b, ll[i].numpy(), ml[i].numpy(), of[i].numpy(), int(nseq[i]),
+        int(anchor[i])) for i, b in enumerate(blocks)}
+    calls = []
+
+    def recorder(data, n_valid):
+        calls.append((data.shape, n_valid.tolist()))
+        return match_finder.parse_blocks(data, n_valid)
+
+    monkeypatch.setattr(device_matcher, "parse_blocks", recorder)
+    dm = DeviceMatcher(device=CPU)
+    dm.precompute(blocks)
+    assert dm.last_stats["blocks"] == len(blocks)
+    assert dm.last_stats["records"] == int(nseq.sum())
+    assert all(dm.find(b) == want[b] for b in blocks)
+    assert len(calls) == len(device_matcher.rounds(blocks)) > 1
+    for (lanes, width), n_valid in calls:
+        assert lanes == len(n_valid) <= 512
+        assert {max(1 << (n - 1).bit_length(), 1024)
+                for n in n_valid} == {width}
+    assert sorted(n for _, nv in calls for n in nv) == \
+        sorted(map(len, blocks))
+
+
 def test_encoder_and_matcher_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -16,8 +16,14 @@ batch of more than 1024 lanes; the resolve kernel runs random records
 chained rows with inert padding and a 30-group chain. The window
 kernel also runs hand-made chains (a ~60,000-byte-deep chain, matches at
 the exact edge of their reach and one byte past it, a broken middle group,
-prefill-only sources) and its 64-bit pointers on small inputs. This file
-imports neither jax nor zstandard, so on the GPU machine it runs with:
+prefill-only sources) and its 64-bit pointers on small inputs. The
+single-group executor runs a ~1 MiB frame whose sources lie past its
+shared-memory ring beside 16 KiB frames, 2048 rows at the smallest ring,
+and random records whose rounds per chunk must equal those of the numpy
+model of its schedule (tests/test_torch_execute_schedule.py); the
+checksum kernel runs lengths 0-33 up to 128 KiB from unaligned starts.
+This file imports neither jax nor zstandard, so on the GPU machine it runs
+with:
 
     python -m pytest --noconftest -p no:cacheprovider -q \
         tests/test_torch_kernels_cuda.py
@@ -30,7 +36,7 @@ import torch
 from zstd_tpu_torch.common.config import CodecConfig, CompressionLevel
 from zstd_tpu_torch.encoding.frame_enc import compress_to_vec
 from zstd_tpu_torch.encoding.device_matcher import DeviceMatcher
-from zstd_tpu_torch.models.batch_decoder import BatchDecoder
+from zstd_tpu_torch.models.batch_decoder import BatchDecoder, chain_plan
 from zstd_tpu_torch.models.batch_encoder import BatchEncoder
 from zstd_tpu_torch.ops import _kernels
 from zstd_tpu_torch.ops.bitpack import pack_bits_lanes
@@ -444,6 +450,115 @@ def test_xxh64_kernel_matches_plain(cuda):
         assert torch.equal(got, exp)
 
 
+@pytest.mark.parametrize("odd_width", [False, True])
+def test_xxh64_kernel_lengths_and_starts(cuda, odd_width):
+    """Lengths 0-33, around a tile and a whole 128 KiB lane, from start 0
+    and from unaligned starts, on rows that are 16-byte aligned or not;
+    against the plain version and the host hash."""
+    from zstd_tpu_torch.utils.xxhash64 import xxhash64
+
+    rng = np.random.default_rng(6)
+    lengths = list(range(34)) + [63, 64, 1023, 1024, 1025, 4103, 1 << 17]
+    W = (1 << 17) + (101 if odd_width else 64)
+    n = 2 * len(lengths)
+    data = rng.integers(0, 256, (n, W), dtype=np.uint8)
+    length = np.asarray(lengths * 2, np.int32)
+    start = np.concatenate([np.zeros(len(lengths), np.int32),
+                            rng.integers(1, 64, len(lengths)).astype(
+                                np.int32)])
+    args = [torch.from_numpy(a).to(cuda) for a in (data, length, start)]
+    got = xxh64_low32_lanes(*args)
+    exp = xxh64_low32_lanes_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, exp)
+    host = [xxhash64(data[i, start[i]:start[i] + length[i]].tobytes())
+            & 0xFFFFFFFF for i in range(n)]
+    assert got.tolist() == host
+
+
+def _exec_inputs(d):
+    """The single-group executor's inputs on staged batch d: the entropy
+    stages' and the resolution's outputs."""
+    from zstd_tpu_torch.models.batch_decoder import _resolve
+
+    lit = d["lit_base"].clone()
+    ll, ml, of = (d[k].clone() for k in ("ll_base", "ml_base", "of_base"))
+    ok = torch.ones(lit.shape[0], dtype=torch.bool, device=lit.device)
+    huffman_lanes(*_huff_args(d), lit, ok)
+    sequence_lanes(*_seq_args(d), ll, ml, of, ok)
+    offsets, out_len, _ = _resolve(ll, ml, of, d["is_real"], d["init_hist"])
+    return ll, ml, offsets, lit, out_len
+
+
+@pytest.fixture(scope="module")
+def big_case(cuda):
+    """A single-group frame of ~1 MiB beside 16 KiB frames, all from the
+    package's own encoder."""
+    payloads = [b"".join(_payloads(3, 350 << 10, seed=4))]
+    payloads += _payloads(6, 16 << 10, seed=5)
+    frames = [bytes(compress_to_vec(p, CompressionLevel.FASTEST))
+              for p in payloads]
+    dec = BatchDecoder(device=cuda)
+    batch = dec.prepare(frames)
+    assert all(len(m.rows) == 1 for m in batch.metas)
+    return dec, batch, dec.stage(batch), payloads, frames
+
+
+def test_execute_kernel_rows_past_the_ring(big_case):
+    """The ~1 MiB row reads most of its sources back from its output row
+    (the ring is at most 64 KiB), the 16 KiB rows fit the ring; then the
+    16 KiB rows given 2048 times over, which shrinks the ring to 8 KiB."""
+    dec, batch, d, payloads, frames = big_case
+    ll, ml, offsets, lit, out_len = _exec_inputs(d)
+    rows, width = d["exec_rows"], d["exec_width"]
+    assert width >= 1 << 20
+    out_k, ok_k = execute_lanes(ll, ml, offsets, lit, out_len, rows, width)
+    out_p, ok_p = execute_lanes_plain(ll, ml, offsets, lit, out_len, rows,
+                                      width)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, out_p) and bool(ok_k.all())
+    for m, p in zip(batch.metas, payloads):
+        r = d["exec_rows_list"].index(m.rows[0])
+        assert out_k[r, :len(p)].cpu().numpy().tobytes() == p
+    small = rows[1:].repeat(2048 // (rows.shape[0] - 1) + 1)[:2048]
+    out_k, ok_k = execute_lanes(ll, ml, offsets, lit, out_len, small, 16384)
+    out_p, ok_p = execute_lanes_plain(ll, ml, offsets, lit, out_len, small,
+                                      16384)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, out_p) and torch.equal(ok_k, ok_p)
+    assert bool(ok_k.all())
+    assert dec.decode_frames(frames) == payloads and dec.host_frames == 0
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_execute_kernel_follows_the_schedule(cuda, seed):
+    """Random records (long runs and fills, bad rows) against the plain
+    version, and the kernel's rounds per chunk against the numpy model of
+    its schedule (tests/test_torch_execute_schedule.py)."""
+    from chip_smoke import random_records
+    from test_torch_execute_schedule import model_lanes
+    from zstd_tpu_torch.ops.execute import rounds_stats
+
+    rec, lit, out_len, out_w, short = random_records(seed)
+    (b, n), = short.items()
+    for lit_w in (lit.shape[1], n):
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+             for a in (rec[0], rec[1], rec[2], lit[:, :lit_w], out_len)]
+        rows = torch.arange(rec.shape[1], dtype=torch.int32, device=cuda)
+        out_k, ok_k = execute_lanes(*t, rows, out_w)
+        stats = rounds_stats()
+        out_p, ok_p = execute_lanes_plain(*t, rows, out_w)
+        torch.cuda.synchronize()
+        assert torch.equal(out_k, out_p) and torch.equal(ok_k, ok_p)
+        _, ok, rounds = model_lanes(rec[0], rec[1], rec[2], lit[:, :lit_w],
+                                    out_len, np.arange(rec.shape[1]), out_w,
+                                    1 << 16)
+        assert ok.tolist() == ok_k.tolist()
+        assert stats["chunks"] == len(rounds) and stats["max"] == max(rounds)
+        assert stats["mean"] == pytest.approx(np.mean(rounds))
+    assert not bool(ok_k[b])
+
+
 def test_decoder_on_cuda(case):
     dec, batch, d, payloads, frames = case
     launches = [f.launches for f in (huffman_lanes, sequence_lanes,
@@ -571,7 +686,8 @@ def test_window_kernel_wide_pointers(cuda, seed):
 
 def test_decoder_on_cuda_chained(cuda):
     """Chained frames (2.5 MiB, two block groups each) and the dictionary
-    frames decode through the window kernel, none on the host."""
+    frames decode through the window kernel, one launch per chain width
+    group, none on the host."""
     raw, dict_frames, digests = load_dict_fixture()
     payloads = _payloads(3, 5 << 19, seed=4)
     frames = [bytes(compress_to_vec(p, CompressionLevel.FASTEST))
@@ -584,7 +700,9 @@ def test_decoder_on_cuda_chained(cuda):
     out = dec.decode_frames(frames)
     assert out[:3] == payloads
     assert all(matches_digest(o, dg) for o, dg in zip(out[3:], digests))
-    assert execute_window.launches == before + 1 and dec.host_frames == 0
+    groups = chain_plan(batch)["groups"]
+    assert len(groups) > 1 and dec.host_frames == 0
+    assert execute_window.launches == before + len(groups)
     outputs, out_len, ok = dec.run_device(batch, pull_outputs=False)
     for m, p in zip(batch.metas, payloads):
         acc, lane, base = outputs[m.rows[0]]

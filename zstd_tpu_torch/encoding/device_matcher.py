@@ -4,11 +4,13 @@ Port of zstd_tpu/encoding/device_matcher.py. The reference spends >60% of
 encode time in its sequential suffix matcher (Readme.md:121,
 match_generator.rs); DeviceMatcher replaces it with the device match finder
 (ops/match_finder.py): hashes, candidates and lcp vectorised in torch, the
-greedy parse in a CUDA kernel. All blocks of a batch go in one device round,
-at the widest block's width (each lane's parse depends only on its own
-bytes, so the reference's width buckets give the same records), and the
-results feed the existing block assembly unchanged through the Matcher
-protocol.
+greedy parse in a CUDA kernel. A batch's blocks are grouped as the
+reference groups them: by padded width (pow2 of the block's length, at
+least 1024), each group split into device rounds of at most MAX_LANES
+blocks, so a small block never pays for a large one's width and no round
+outgrows the card (each lane's parse depends only on its own bytes, so the
+grouping does not change the records). The results feed the existing block
+assembly unchanged through the Matcher protocol.
 
 Streams produced this way are valid but not byte-identical to the host
 matcher's (different tie-breaks and no cross-block window); gates are round
@@ -27,12 +29,29 @@ from zstd_tpu_torch.encoding.matcher import Matcher
 from zstd_tpu_torch.models.batch_decoder import resolve_device
 from zstd_tpu_torch.ops.match_finder import parse_blocks
 
+MAX_LANES = 512  # blocks per device round (the reference's cap)
+
+
+def lane_width(n: int) -> int:
+    """A block of n bytes parses at pow2(n), at least 1024."""
+    return max(1 << (n - 1).bit_length(), 1024)
+
+
+def rounds(blocks: list) -> list:
+    """The device rounds of `blocks`: grouped by lane_width, widest last,
+    at most MAX_LANES blocks each."""
+    by_width = {}
+    for b in blocks:
+        by_width.setdefault(lane_width(len(b)), []).append(b)
+    return [blks[s:s + MAX_LANES] for _, blks in sorted(by_width.items())
+            for s in range(0, len(blks), MAX_LANES)]
+
 
 def block_lanes(blocks: list, device):
     """The parse's inputs for `blocks`: data (B, W) uint8, zero-padded to
     W = pow2(longest block) (at least 1024), and n_valid (B,) int32."""
     B = len(blocks)
-    w = max(1 << (max(map(len, blocks)) - 1).bit_length(), 1024)
+    w = lane_width(max(map(len, blocks)))
     data = np.zeros((B, w), np.uint8)
     n_valid = np.zeros(B, np.int32)
     for i, b in enumerate(blocks):
@@ -63,7 +82,8 @@ class DeviceMatcher(Matcher):
     until the next precompute. find(block) then serves those results,
     parsing an unseen block on its own.
 
-    last_stats after each device round: blocks, records, device_s (upload,
+    last_stats after each precompute (or parse of an unseen block), summed
+    over its device rounds (rounds()): blocks, records, device_s (upload,
     candidates, parse and the records' download) and records_s (turning
     the records into RawSequence lists on the host).
     """
@@ -76,7 +96,7 @@ class DeviceMatcher(Matcher):
     def reset(self, level: CompressionLevel) -> None:
         pass
 
-    def _parse(self, blocks: list) -> dict:
+    def _parse_round(self, blocks: list, out: dict, stats: dict) -> None:
         t0 = time.perf_counter()
         ll, ml, of, nseq, anchor = parse_blocks(
             *block_lanes(blocks, self.device))
@@ -85,12 +105,21 @@ class DeviceMatcher(Matcher):
         cut = max(int(nseq_h.max()), 1)
         ll_h, ml_h, of_h = (t[:, :cut].cpu().numpy() for t in (ll, ml, of))
         t1 = time.perf_counter()
-        out = {b: _to_sequences(b, ll_h[i], ml_h[i], of_h[i], int(nseq_h[i]),
-                                int(anchor_h[i]))
-               for i, b in enumerate(blocks)}
-        self.last_stats = {"blocks": len(blocks),
-                           "records": int(nseq_h.sum()), "device_s": t1 - t0,
-                           "records_s": time.perf_counter() - t1}
+        for i, b in enumerate(blocks):
+            out[b] = _to_sequences(b, ll_h[i], ml_h[i], of_h[i],
+                                   int(nseq_h[i]), int(anchor_h[i]))
+        stats["blocks"] += len(blocks)
+        stats["records"] += int(nseq_h.sum())
+        stats["device_s"] += t1 - t0
+        stats["records_s"] += time.perf_counter() - t1
+
+    def _parse(self, blocks: list) -> dict:
+        out = {}
+        stats = {"blocks": 0, "records": 0, "device_s": 0.0,
+                 "records_s": 0.0}
+        for group in rounds(blocks):
+            self._parse_round(group, out, stats)
+        self.last_stats = stats
         return out
 
     def precompute(self, blocks: list) -> None:

@@ -12,8 +12,8 @@ launch per device stage over all live lanes:
   stage 3:  LZ77 execution of every single-group frame (ops/execute.py)
   stage 3a': with pull_outputs=False, the frame checksums on the device
             (ops/xxhash64.py)
-  stage 3b: LZ77 execution of every chained frame, all block groups of all
-            chains in one launch (ops/execute_window.py)
+  stage 3b: LZ77 execution of every chained frame, all block groups of the
+            chains of one width group in one launch (ops/execute_window.py)
 
 A frame is chained when the framer split it into several block groups (its
 output passes the group caps, models/framer.py), or when it references a
@@ -76,15 +76,22 @@ def chained_metas(batch) -> list:
 def chain_plan(batch) -> dict | None:
     """The host-side plan of the batch's chained frames, None without any.
 
-    rows (C, K) i32: each chain's rows in order, padded with the inert row
-    (no records, no output); row_cont (Bf,) bool: a chain's rows after its
-    first; hist0 (C,) i32 and prefill (C, base) u8: the chain's dictionary
-    content, right-aligned; cap (C,) i64: the history a group may reach, W
-    for a near chain and the real window for a far one (W = pow2(max(window,
-    dictionary length, 1024)) and the chain is far when W >
-    STREAM_WINDOW_CAP); base, width: the accumulator row holds the prefill
-    before `base` and the chain's output after it, `width` covering the
-    largest sum of a chain's group bounds."""
+    For the resolution, over all chains: rows (C, K) i32, each chain's rows
+    in order, padded with the inert row (no records, no output); row_cont
+    (Bf,) bool, a chain's rows after its first.
+
+    For the execution, groups: the chains grouped by pow2(hist0 + bound) of
+    each chain (hist0 its dictionary content's length, bound the sum of its
+    groups' output bounds), narrowest first, each group one window-kernel
+    call into its own accumulator, so a short chain never pays for a long
+    one's width. A group holds first (its chains' first rows), rows (C_g,
+    K_g) i32, hist0 (C_g,) i32, prefill (C_g, base) u8 (each chain's
+    dictionary content, right-aligned), cap (C_g,) i64 (the history a
+    block group may reach: W for a near chain and the real window for a far
+    one, W = pow2(max(window, dictionary length, 1024)), far when W >
+    STREAM_WINDOW_CAP), base (its largest prefill) and width (base + its
+    largest bound, at least 1): the accumulator row holds the prefill
+    before `base` and the chain's output after it."""
     chained = chained_metas(batch)
     if not chained:
         return None
@@ -92,24 +99,41 @@ def chain_plan(batch) -> dict | None:
     C, K = len(chained), max(len(m.rows) for m in chained)
     rows = np.full((C, K), inert, np.int32)
     cont = np.zeros(inert + 1, bool)
-    hist0 = np.asarray([len(m.dict_prefill) for m in chained], np.int32)
-    cap = np.zeros(C, np.int64)
-    base = int(hist0.max())
-    prefill = np.zeros((C, base), np.uint8)
     for c, m in enumerate(chained):
         rows[c, :len(m.rows)] = m.rows
         cont[m.rows[1:]] = True
+    hist0 = [len(m.dict_prefill) for m in chained]
+    bound = [sum(int(batch.out_len[r]) for r in m.rows) for m in chained]
+    by_width = {}
+    for c in range(C):
+        key = framer_mod._round_pow2(hist0[c] + bound[c])
+        by_width.setdefault(key, []).append(c)
+    groups = [_chain_group([chained[c] for c in members], rows[members],
+                           [hist0[c] for c in members],
+                           max(bound[c] for c in members))
+              for _, members in sorted(by_width.items())]
+    return dict(rows=rows, row_cont=cont, groups=groups)
+
+
+def _chain_group(metas, rows, hist0, bound: int) -> dict:
+    """One width group of chain_plan: its chains' rows (cut to its longest
+    chain), prefills and caps at the group's own base and width."""
+    base = max(hist0)
+    prefill = np.zeros((len(metas), base), np.uint8)
+    cap = np.zeros(len(metas), np.int64)
+    for i, m in enumerate(metas):
         # with a dictionary, offsets reach its whole content whatever the
         # window says (decode_buffer.rs:143-179), so W covers it
-        W = 1 << (max(int(m.window), int(hist0[c]), 1024) - 1).bit_length()
-        cap[c] = int(m.window) if W > framer_mod.STREAM_WINDOW_CAP else W
-        if hist0[c]:
-            prefill[c, base - hist0[c]:] = np.frombuffer(m.dict_prefill,
+        W = 1 << (max(int(m.window), hist0[i], 1024) - 1).bit_length()
+        cap[i] = int(m.window) if W > framer_mod.STREAM_WINDOW_CAP else W
+        if hist0[i]:
+            prefill[i, base - hist0[i]:] = np.frombuffer(m.dict_prefill,
                                                          np.uint8)
-    bound = max(sum(int(batch.out_len[r]) for r in m.rows) for m in chained)
-    return dict(rows=rows, row_cont=cont, hist0=hist0, cap=cap,
-                prefill=prefill, base=base, width=max(base + bound, 1),
-                first=[m.rows[0] for m in chained])
+    K = max(len(m.rows) for m in metas)
+    return dict(first=[m.rows[0] for m in metas],
+                rows=np.ascontiguousarray(rows[:, :K]),
+                hist0=np.asarray(hist0, np.int32), cap=cap, prefill=prefill,
+                base=base, width=max(base + bound, 1))
 
 
 def _resolve(ll_full, ml_full, of_full, is_real, init_hist):
@@ -186,14 +210,16 @@ class BatchDecoder:
         host["ck_skip"] = np.asarray([ck.get(r, (0, 0))[1] for r in rows],
                                      np.int32)
         if plan is not None:
-            for k in ("rows", "row_cont", "hist0", "cap", "prefill"):
-                host[f"chain_{k}"] = plan[k]
+            host["chain_rows"] = plan["rows"]
+            host["chain_row_cont"] = plan["row_cont"]
         d = {name: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
              for name, v in host.items()}
         d["exec_rows_list"] = rows
         d["exec_width"] = exec_width
-        d["chains"] = None if plan is None else {
-            k: plan[k] for k in ("base", "width", "first")}
+        # per width group: its plan arrays on the device, base, width, first
+        d["chains"] = None if plan is None else [
+            {k: (torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray)
+                 else v) for k, v in g.items()} for g in plan["groups"]]
         return d
 
     def run_device(self, batch, staged: dict | None = None,
@@ -269,32 +295,35 @@ class BatchDecoder:
         done = None
         if chains is not None:
             # Stage 3b, chained frames (zstd_tpu/models/batch_decoder.py:
-            # 975-1331): one launch runs every group of every chain, each
-            # chain's history whole in its accumulator row. Not carried
-            # over, since each exists for the TPU's VMEM, Mosaic or call
-            # overheads: the jumbo-group guard and its size floor
-            # (:984-1001), the window-size buckets and the `li` lockstep
-            # chooser with LOCKSTEP_BLOCK_CAP and _NOALIAS (:1016-1122),
+            # 975-1331): one launch per width group of chain_plan runs
+            # every block group of its chains, each chain's history whole
+            # in its accumulator row (the reference pads within its window
+            # buckets, :1016-1032; these group by the chain's own width).
+            # Not carried over, since each exists for the TPU's VMEM,
+            # Mosaic or call overheads: the jumbo-group guard and its size
+            # floor (:984-1001), the `li` lockstep chooser with
+            # LOCKSTEP_BLOCK_CAP and _NOALIAS (:1033-1122),
             # the exact-size sync (:1035-1066), the super-group packing and
             # its rows cache (:1149-1280), and the far-stream pre-gather
             # (_far_prep, _far_row_totals, _far_gather, :351-409, used at
             # :1129-1148): the kernel reads far history from the
             # accumulator itself.
-            plan = d["chain_rows"]
-            base = chains["base"]
+            done = []
             with scope("lz77_window_execute"):
-                acc = torch.zeros((plan.shape[0], chains["width"]),
-                                  dtype=torch.uint8, device=self.device)
-                if base:
-                    acc[:, :base] = d["chain_prefill"]
-                written, chain_ok = execute_window(
-                    ll_full, ml_full, offsets, lit_full, out_len,
-                    d["row_lit_len"], plan, acc, base, d["chain_hist0"],
-                    d["chain_cap"])
-            # a chain is ok when every group executed and every row's
-            # entropy stages and resolution were
-            chain_ok = chain_ok & ok_dev[plan.long()].all(dim=1)
-            done = (acc, written, chain_ok, base, chains["first"])
+                for g in chains:
+                    acc = torch.zeros((len(g["first"]), g["width"]),
+                                      dtype=torch.uint8, device=self.device)
+                    if g["base"]:
+                        acc[:, :g["base"]] = g["prefill"]
+                    written, chain_ok = execute_window(
+                        ll_full, ml_full, offsets, lit_full, out_len,
+                        d["row_lit_len"], g["rows"], acc, g["base"],
+                        g["hist0"], g["cap"])
+                    # a chain is ok when every group executed and every
+                    # row's entropy stages and resolution were
+                    chain_ok = chain_ok & ok_dev[g["rows"].long()].all(dim=1)
+                    done.append((acc, written, chain_ok, g["base"],
+                                 g["first"]))
 
         self.host_frames += sum(1 for m in batch.metas if m.fallback)
         state = (out_len, ok_dev, out, d["exec_rows_list"], done,
@@ -307,8 +336,8 @@ class BatchDecoder:
         """Second half of run_device: the single host sync + unpack."""
         out_len, ok_dev, out, rows, chains, frame_inert = state
         parts = [out_len.long(), ok_dev.long()]
-        if chains is not None:
-            parts += [chains[1], chains[2].long()]
+        for _, written, chain_ok, _, _ in chains or ():
+            parts += [written, chain_ok.long()]
         host = torch.cat(parts).cpu().numpy()
         Bf = frame_inert + 1
         out_len_h = host[:Bf].copy()
@@ -322,11 +351,12 @@ class BatchDecoder:
             # device-resident (tensor, row) handles: no per-row slicing
             for i, lane in enumerate(rows):
                 outputs[lane] = (out, i)
-        if chains is not None:
-            acc, _, _, base, first = chains
+        at = 2 * Bf
+        for acc, _, _, base, first in chains or ():
             C = len(first)
-            written = host[2 * Bf:2 * Bf + C]
-            chain_ok = host[2 * Bf + C:].astype(bool)
+            written = host[at:at + C]
+            chain_ok = host[at + C:at + 2 * C].astype(bool)
+            at += 2 * C
             acc_h = acc.cpu().numpy() if pull_outputs else None
             for c, r0 in enumerate(first):
                 out_len_h[r0] = written[c]

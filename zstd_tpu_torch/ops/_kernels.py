@@ -136,6 +136,15 @@ def entry(name: str):
     return fn
 
 
+def symbol(name: str, sym: str, argtypes: list):
+    """Another C function `sym` of kernel `name`'s library (returns int)."""
+    entry(name)
+    fn = getattr(ctypes.CDLL(lib_path(name)), sym)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def launch(name: str, *args) -> None:
     """Call kernel `name`'s C entry point on the current CUDA stream;
     tensors pass as their data pointers. Raises on a failed launch."""

@@ -1,8 +1,9 @@
 """LZ77 sequence execution per frame lane.
 
-`execute_lanes` runs the CUDA kernel (csrc/execute.cu) for CUDA tensors and
-`execute_lanes_plain` for CPU tensors; both compute, for each selected frame
-row r = rows[i]:
+`execute_lanes` runs the CUDA kernel (csrc/execute.cu: one warp per frame
+row, its recent output in a shared-memory ring, 32 records at a time with
+their matches in rounds) for CUDA tensors and `execute_lanes_plain` for CPU
+tensors; both compute, for each selected frame row r = rows[i]:
 
   walk records (ll, ml, offset)[r, :] in slot order: copy ll literal bytes
   from lit[r], then ml bytes from `offset` back (a periodic fill when
@@ -18,6 +19,8 @@ zstd_tpu/ops/execute.py::execute_sequences_lanes: per-position source map,
 closed-form periodic fills, then src = src[src] until a fixpoint — every
 output byte's origin is a literal position.
 """
+
+import ctypes
 
 import torch
 
@@ -125,3 +128,17 @@ def execute_lanes(ll, ml, offset, lit, out_len, rows, out_width: int):
 
 
 execute_lanes.launches = 0
+
+
+def rounds_stats() -> dict:
+    """The match rounds of the last CUDA call, over its chunks of 32 records
+    (of ok rows, chunks that hold a record): mean and max rounds per chunk
+    and the chunks (waits for the device: for measurements and tests)."""
+    buf = (ctypes.c_ulonglong * 3)()
+    err = _kernels.symbol("execute", "zt_execute_stats",
+                          [ctypes.c_void_p])(ctypes.addressof(buf))
+    if err != 0:
+        raise _kernels.KernelError(f"execute stats: CUDA error {err}")
+    total, chunks, most = buf
+    return {"mean": total / chunks if chunks else 0.0, "max": int(most),
+            "chunks": int(chunks)}

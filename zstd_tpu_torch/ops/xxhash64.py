@@ -5,7 +5,8 @@ frame checksum is verified there: each lane's bytes
 data[i, start[i] : start[i] + length[i]] are hashed and the low 32 bits
 compared with the frame's checksum field (the reference hashes on every
 drain, decode_buffer.rs:241-314). `xxh64_low32_lanes` runs the CUDA kernel
-(csrc/xxhash64.cu, one thread per lane) for CUDA tensors and
+(csrc/xxhash64.cu, one warp per lane: 1 KiB tiles in shared memory, four
+threads running the four accumulators) for CUDA tensors and
 `xxh64_low32_lanes_plain` for CPU tensors.
 
 The plain version walks 32-byte stripes for all lanes at once, as
