@@ -27,7 +27,8 @@ phase raises on failure, so any failure exits non-zero:
   6. each kernel at the main path's shapes on the main path's inputs:
      bit-equal to its plain version, both timed, beside its bound (the
      executor at the staged width of its own rows); the executor's match
-     rounds per chunk of 32 records
+     rounds per chunk of 32 records; the Huffman kernel's lanes by the
+     warp walk and serially (none may be serial) and its re-walk rounds
   7. small chained batch: three 2.5 MiB frames (two block groups each),
      the committed dictionary frames (zstd_tpu_torch/testdata) and a
      2.5 MiB frame broken in its second group; the window kernel bit-equal
@@ -45,7 +46,8 @@ phase raises on failure, so any failure exits non-zero:
      the far frame's (one chain, cap the real window): bit-equal to its
      plain version, both timed, beside its bound; its jump rounds, CUDA
      launches per call and scratch bytes; the resolve kernel with the chain
-     plans of both batches, bit-equal to its plain version and timed
+     plans of both batches, bit-equal to its plain version and timed; the
+     Huffman kernel on both batches, bit-equal, no lane serial
  11. entropy path: bench.py's encode scenario (make_corpus(8, seed=5), 64
      frames of 128 KiB) through BatchEncoder() with the host matcher;
      every frame equal to compress_to_vec's, fse_encode launched
@@ -168,6 +170,24 @@ def resolve_case(d, ll, ml, of):
             sequence.resolve_frames_plain)
 
 
+def huffman_case(d):
+    """(setup, call, kernel, plain) of the Huffman kernel on staged batch d."""
+    import torch
+
+    from zstd_tpu_torch.ops import huffman
+
+    def setup():
+        lit = d["lit_base"].clone()
+        return [lit, torch.ones(lit.shape[0], dtype=torch.bool,
+                                device=lit.device)]
+
+    def call(fn, bufs):
+        fn(*_huff_args(d), *bufs)
+        return bufs
+
+    return setup, call, huffman.huffman_lanes, huffman.huffman_lanes_plain
+
+
 def kernel_cases(d):
     """{name: (setup() -> buffers, call(fn, buffers) -> outputs, kernel fn,
     plain fn)} on the staged batch `d`, plus the stage outputs. The
@@ -176,17 +196,9 @@ def kernel_cases(d):
     import torch
 
     from zstd_tpu_torch.models.batch_decoder import _resolve
-    from zstd_tpu_torch.ops import execute, huffman, sequence, xxhash64
+    from zstd_tpu_torch.ops import execute, sequence, xxhash64
 
     dev = d["lit_base"].device
-
-    def setup_huff():
-        lit = d["lit_base"].clone()
-        return [lit, torch.ones(lit.shape[0], dtype=torch.bool, device=dev)]
-
-    def call_huff(fn, bufs):
-        fn(*_huff_args(d), *bufs)
-        return bufs
 
     def setup_seq():
         arrs = [d[k].clone() for k in ("ll_base", "ml_base", "of_base")]
@@ -213,8 +225,7 @@ def kernel_cases(d):
         return [fn(out, length, skip)]
 
     cases = {
-        "huffman": (setup_huff, call_huff, huffman.huffman_lanes,
-                    huffman.huffman_lanes_plain),
+        "huffman": huffman_case(d),
         "sequence": (setup_seq, call_seq, sequence.sequence_lanes,
                      sequence.sequence_lanes_plain),
         "resolve": resolve_case(d, ll, ml, of),
@@ -773,7 +784,38 @@ def phase_kernels(batch, staged, launches):
     say(f"kernel execute: match rounds per chunk of 32 records on the main "
         f"batch: mean {st['mean']:.4f}, max {st['max']}, {st['chunks']} "
         f"chunks")
+    huffman_lane_counts("main path", cases["huffman"])
     return rows
+
+
+def huffman_lane_counts(label, case):
+    """One Huffman kernel call: its lanes decoded by the warp walk and
+    walked serially, and its re-walk rounds; no lane of valid frames may
+    take the serial path."""
+    from zstd_tpu_torch.ops import huffman
+
+    setup, call, kern, _ = case
+    call(kern, setup())
+    st = huffman.lane_stats()
+    lanes = st["warp_lanes"] + st["serial_lanes"]
+    say(f"kernel huffman, {label}: {st['warp_lanes']} lanes by the warp "
+        f"walk, {st['serial_lanes']} serial; re-walk rounds a lane mean "
+        f"{st['rounds_sum'] / max(st['warp_lanes'], 1):.4f}, max "
+        f"{st['rounds_max']}")
+    need(lanes > 0 and st["serial_lanes"] == 0,
+         f"huffman, {label}: {st['serial_lanes']} lanes took the serial path")
+
+
+def phase_huffman_chained(staged, far_staged):
+    """The Huffman kernel on the chained path's and the far frame's
+    batches: bit-equal to its plain version, 0 serial lanes; the larger
+    error."""
+    err = 0
+    for label, d in (("chained path", staged), ("far frame", far_staged)):
+        case = huffman_case(d)
+        err = max(err, compare(f"huffman ({label})", *case))
+        huffman_lane_counts(label, case)
+    return err
 
 
 # --- chained frames ----------------------------------------------------------
@@ -1390,6 +1432,9 @@ def main() -> int:
     res = next(r for r in rows if r["name"] == "resolve")
     res["max_abs_err"] = max(res["max_abs_err"],
                              phase_resolve_chained(staged, far))
+    huff = next(r for r in rows if r["name"] == "huffman")
+    huff["max_abs_err"] = max(huff["max_abs_err"],
+                              phase_huffman_chained(staged, far))
     del dec, batch, staged, far
     payloads, host_ratio = phase_encode_host()
     launches, args = phase_encode_device(payloads, host_ratio)

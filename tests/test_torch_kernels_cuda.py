@@ -22,7 +22,13 @@ shared-memory ring beside 16 KiB frames, 2048 rows at the smallest ring,
 and random records whose rounds per chunk must equal those of the numpy
 model of its schedule (tests/test_torch_execute_schedule.py); the
 checksum kernel runs lengths 0-33 up to 128 KiB from unaligned starts.
-This file imports neither jax nor zstandard, so on the GPU machine it runs
+The Huffman kernel runs the lanes of the numpy model of its segmented walk
+(tests/test_torch_huffman_schedule.py: malformed lanes, tables that break
+its property, short and one-symbol lanes), with its serial lanes and
+re-walk rounds equal to the model's, streams past its shared staging size
+and unaligned rows; the FSE-encode kernel
+lanes of 1, 31-33, 63-65, 97 and S sequences and output caps below the
+streams. This file imports neither jax nor zstandard, so on the GPU machine it runs
 with:
 
     python -m pytest --noconftest -p no:cacheprovider -q \
@@ -47,7 +53,8 @@ from zstd_tpu_torch.ops.execute_window import (execute_window,
 from zstd_tpu_torch.ops.fse_encode import (encode_sequence_lanes_plain,
                                            encode_sequences_packed,
                                            out_words_for, seq_lane_arrays)
-from zstd_tpu_torch.ops.huffman import huffman_lanes, huffman_lanes_plain
+from zstd_tpu_torch.ops.huffman import (huffman_lanes, huffman_lanes_plain,
+                                        lane_stats)
 from zstd_tpu_torch.ops.match_finder import (find_candidates, parse_lanes,
                                              parse_lanes_plain)
 from zstd_tpu_torch.ops.sequence import (resolve_frames, resolve_frames_plain,
@@ -353,6 +360,124 @@ def test_huffman_kernel_matches_plain(case, corrupt):
     assert torch.equal(outs[0][0], outs[1][0])
     assert torch.equal(outs[0][1], outs[1][1])
     assert bool(outs[0][1].all()) != corrupt
+
+
+def huffman_staged(stage, streams, init_pos, tid, nsym, dst_frame, dst_off,
+                   tables, maxbits, lit, frame_ok):
+    """huffman_lanes with the stream bytes the kernel stages in shared
+    memory given (a longer stream reads global memory); its counters."""
+    stats = torch.empty((4,), dtype=torch.int64, device=lit.device)
+    _kernels.launch("huffman", streams, streams.shape[1], streams.shape[0],
+                    init_pos, tid, nsym, dst_frame, dst_off, tables,
+                    tables.shape[0], maxbits, lit, lit.shape[1],
+                    lit.shape[0], frame_ok, stage, stats)
+    warp, serial, rounds, most = stats.tolist()
+    return {"warp_lanes": warp, "serial_lanes": serial,
+            "rounds_sum": rounds, "rounds_max": most}
+
+
+def _huff_both(device, a, lit, stage=None):
+    """The kernel (with the given staging size, or its own) and the plain
+    version on numpy lane arrays `a` (the schedule model's inputs)
+    and literal rows `lit`: ((lit, ok) of each, the kernel's counters)."""
+    from test_torch_huffman_schedule import LANE_KEYS
+
+    t = [torch.from_numpy(np.ascontiguousarray(a[k]).astype(
+        np.int32 if k == "huff_tables" else a[k].dtype)).to(device)
+        for k in LANE_KEYS]
+    outs = []
+    for fn in (huffman_lanes, huffman_lanes_plain):
+        out = torch.from_numpy(lit.copy()).to(device)
+        ok = torch.ones(lit.shape[0], dtype=torch.bool, device=device)
+        if fn is huffman_lanes and stage is not None:
+            stats = huffman_staged(stage, *t, out, ok)
+        else:
+            fn(*t, out, ok)
+            if fn is huffman_lanes:
+                stats = lane_stats()
+        outs.append((out, ok))
+    torch.cuda.synchronize()
+    return outs, stats
+
+
+@pytest.fixture(scope="module")
+def huff_main(cuda):
+    from test_torch_huffman_schedule import main_lanes
+
+    return main_lanes(8)
+
+
+@pytest.mark.parametrize("kind", ["main", "flipped_byte", "init_neg",
+                                  "nsym_plus", "nsym_minus", "nb_zero",
+                                  "nb_over", "short_lanes"])
+def test_huffman_kernel_on_model_lanes(cuda, huff_main, kind):
+    """Main-corpus lanes with one bad lane of each kind (or short lanes and
+    a one-symbol lane): bit-equal to the plain version; the serial lanes
+    and the re-walk rounds equal the numpy model's."""
+    from test_torch_huffman_schedule import run_model, variant
+
+    a, lit, _ = variant(*huff_main, kind)
+    ((lk, ok_k), (lp, ok_p)), stats = _huff_both(cuda, a, lit)
+    assert torch.equal(lk, lp) and torch.equal(ok_k, ok_p)
+    _, ok, rounds, serial = run_model(a, lit)
+    assert ok.tolist() == ok_k.tolist()
+    assert stats["serial_lanes"] == len(serial)
+    assert stats["warp_lanes"] == len(rounds)
+    assert stats["rounds_sum"] == sum(rounds.values())
+    assert stats["rounds_max"] == max(rounds.values())
+
+
+@pytest.mark.parametrize("stage,pad", [(None, 0), (256, 0), (256, 5),
+                                       (None, 3), (4096, 1)])
+def test_huffman_kernel_staging_sizes(cuda, huff_main, stage, pad):
+    """The main lanes at their own destinations, staged in shared memory or
+    read from global memory (streams past the staging size), from stream
+    rows and into literal rows that are not aligned (`pad` bytes wider);
+    0 serial lanes."""
+    arrs, lit = huff_main
+    a = dict(arrs)
+    if pad:
+        B, L = a["huff_streams"].shape
+        a["huff_streams"] = np.concatenate(
+            [a["huff_streams"], np.zeros((B, pad), np.uint8)], axis=1)
+        lit = np.concatenate(
+            [lit, np.full((lit.shape[0], pad), 7, np.uint8)], axis=1)
+        a["huff_dst_off"] = a["huff_dst_off"] + pad
+    ((lk, ok_k), (lp, ok_p)), stats = _huff_both(cuda, a, lit, stage)
+    assert torch.equal(lk, lp) and torch.equal(ok_k, ok_p)
+    assert bool(ok_k.all())
+    assert stats["serial_lanes"] == 0
+    assert stats["warp_lanes"] == int((a["huff_nsym"] > 0).sum())
+
+
+def test_huffman_kernel_long_streams(cuda):
+    """Frames of one 128 KiB block of letters: literal-only blocks whose
+    four streams pass the 8 KiB staging size, decoded through global
+    reads; bit-equal, 0 serial lanes, and the frames decode exactly."""
+    rng = np.random.default_rng(5)
+    payloads = [bytes(rng.choice(np.frombuffer(b"etaoinshrdlu", np.uint8),
+                                 1 << 17)) for _ in range(3)]
+    frames = [bytes(compress_to_vec(p, CompressionLevel.FASTEST))
+              for p in payloads]
+    dec = BatchDecoder(device=cuda)
+    batch = dec.prepare(frames)
+    live = batch.huff_nsym > 0
+    assert int(batch.huff_len[live].max()) > 8192
+    d = dec.stage(batch)
+    outs = []
+    for fn in (huffman_lanes, huffman_lanes_plain):
+        lit = d["lit_base"].clone()
+        ok = torch.ones(lit.shape[0], dtype=torch.bool, device=cuda)
+        fn(*_huff_args(d), lit, ok)
+        outs.append((lit, ok))
+        if fn is huffman_lanes:
+            stats = lane_stats()
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1]) and bool(outs[0][1].all())
+    assert stats["serial_lanes"] == 0 and stats["warp_lanes"] == int(
+        live.sum())
+    assert dec.decode_frames(frames) == payloads
 
 
 @pytest.mark.parametrize("corrupt", [False, True])
@@ -785,6 +910,43 @@ def test_fse_encode_kernel_matches_plain(cuda):
     assert encode_sequences_packed.launches == before + 1
     assert torch.equal(words, pw) and torch.equal(total, pt)
     assert int(total[1]) == 0 and not bool(words[1].any())
+
+
+@pytest.fixture(scope="module")
+def fse_lanes(cuda):
+    payloads = _payloads(6, 40 << 10, seed=8) + [
+        b"".join(b"key%04d=" % (i % 97) + b"v" * 9 for i in range(3000))]
+    return seq_lane_arrays(_seq_lanes(cuda, payloads), cuda)
+
+
+@pytest.mark.parametrize("counts", [(1, 31, 32, 33, None),
+                                    (2, 63, 64, 65, 97)])
+def test_fse_encode_kernel_chunk_edges(cuda, fse_lanes, counts):
+    """Lanes cut to 1, 31, 32, 33, ... sequences (one chunk of 32 and its
+    edges) and one of all S slots (None; its zero padding encodes as
+    sequences too): bit-equal to the plain version."""
+    arrays = [a.clone() for a in fse_lanes]
+    S = arrays[0].shape[1]
+    nseq = arrays[3]
+    for lane, c in enumerate(counts):
+        nseq[lane] = S if c is None else min(c, S)
+    ow = out_words_for(S)
+    words, total = encode_sequences_packed(*arrays, ow)
+    pw, pt = pack_bits_lanes(*encode_sequence_lanes_plain(*arrays), ow)
+    torch.cuda.synchronize()
+    assert torch.equal(words, pw) and torch.equal(total, pt)
+
+
+@pytest.mark.parametrize("out_words", [1, 40, 301])
+def test_fse_encode_kernel_past_out_words(cuda, fse_lanes, out_words):
+    """An output cap below the lanes' streams: words past it are dropped
+    and the totals still count every bit, as in the plain version."""
+    words, total = encode_sequences_packed(*fse_lanes, out_words)
+    pw, pt = pack_bits_lanes(*encode_sequence_lanes_plain(*fse_lanes),
+                             out_words)
+    torch.cuda.synchronize()
+    assert int(total.max()) > 32 * out_words
+    assert torch.equal(words, pw) and torch.equal(total, pt)
 
 
 def test_batch_encoder_on_cuda_equals_host_encoder(cuda):

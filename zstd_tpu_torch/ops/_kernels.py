@@ -37,7 +37,7 @@ _LL = ctypes.c_longlong
 SIGNATURES = {
     "huffman": ("zt_huffman_lanes",
                 [_P, _LL, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _LL, _I,
-                 _P, _P]),
+                 _P, _I, _P, _P]),
     "sequence": ("zt_sequence_lanes",
                  [_P, _LL, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I,
                   _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL,

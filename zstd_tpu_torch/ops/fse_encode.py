@@ -25,7 +25,9 @@ Lane arrays (`seq_lane_arrays` builds them), one row per lane:
   logs (B, 3) int32 table logs (ll, ml, of), 0 for an RLE stream
 
 `encode_sequences_packed` launches the CUDA kernel (csrc/fse_encode.cu,
-encode and pack fused, one warp per lane) for CUDA tensors and packs
+encode and pack fused, two warps per lane: one codes and packs 32
+sequences at a time, three threads of the other walk the states) for CUDA
+tensors and packs
 `encode_sequence_lanes_plain`'s runs with ops/bitpack.py for CPU tensors.
 A state's next-state index is clamped to its table (the reference's gather
 clamps too); valid tables never reach the clamp.

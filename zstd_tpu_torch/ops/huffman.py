@@ -18,12 +18,21 @@ tensors; both compute the same function, fused with the stage's scatter
 
 Tables are the framer's dense LUTs, `huff_tables` (T, 2048) as int32
 (sym | nb << 8), selected per lane by `tid`.
+
+The kernel decodes a lane with a warp over self-synchronising segments and
+walks a lane serially only when it is malformed or its table breaks
+1 <= nb <= max_bits; `lane_stats()` reads its counters of the last call.
 """
 
 import torch
 
 from zstd_tpu_torch.ops import _kernels
 from zstd_tpu_torch.ops.bitstream import build_windows, read_bits
+
+# The kernel stages a lane's stream in shared memory up to STAGE_BYTES (a
+# longer one reads global memory); with its 4 KiB table, 17 blocks fit an SM
+# (scripts/huffman_profile.py times other sizes).
+STAGE_BYTES = 8192
 
 
 def huffman_lanes_plain(streams, init_pos, tid, nsym, dst_frame, dst_off,
@@ -93,11 +102,27 @@ def huffman_lanes(streams, init_pos, tid, nsym, dst_frame, dst_off, tables,
     _kernels.require(frame_ok, "frame_ok", torch.bool, 1, dev)
     if frame_ok.shape[0] != lit.shape[0]:
         raise ValueError("frame_ok: one entry per literal row expected")
+    stats = torch.empty((4,), dtype=torch.int64, device=dev)
     _kernels.launch("huffman", streams, streams.shape[1], B, init_pos,
                     tid, nsym, dst_frame, dst_off, tables,
                     tables.shape[0], maxbits, lit, lit.shape[1],
-                    lit.shape[0], frame_ok)
+                    lit.shape[0], frame_ok, min(streams.shape[1], STAGE_BYTES),
+                    stats)
     huffman_lanes.launches += 1
+    huffman_lanes.last_stats = stats
 
 
 huffman_lanes.launches = 0
+huffman_lanes.last_stats = None
+
+
+def lane_stats() -> dict:
+    """The kernel's counters of the last CUDA call (waits for the device):
+    lanes decoded by the warp walk, lanes walked serially, and the re-walk
+    rounds of the warp lanes (sum and max)."""
+    s = huffman_lanes.last_stats
+    if s is None:
+        return {}
+    warp, serial, rounds, most = s.tolist()
+    return {"warp_lanes": warp, "serial_lanes": serial,
+            "rounds_sum": rounds, "rounds_max": most}
