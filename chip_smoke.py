@@ -60,7 +60,9 @@ phase raises on failure, so any failure exits non-zero:
  13. CLI: `python -m zstd_tpu_torch.cli compress --gpu`, then `decompress
      --gpu`, as subprocesses on one 8 MiB frame (chained on decode); exact
  14. the parse and fse_encode kernels at phase 12's shapes on its inputs:
-     bit-equal to their plain versions, both timed, beside their bounds
+     bit-equal to their plain versions, both timed, beside their bounds;
+     the parse kernel's counters (segments, re-walk rounds, lanes walked
+     serially, of which there may be none, and lanes past MAX_SEQS)
 
 The line before the last is the `kernels` JSON object; the last line is
 {"ok": true, "device": {...}}.
@@ -1398,8 +1400,28 @@ def phase_encode_kernels(args, launches):
         say(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
             f"{bounds[name][0]:.4f} ms by {bounds[name][1]}), max abs err "
             f"{err} (tolerance 0: integer codec)")
+        if name == "parse":
+            parse_counts(setup, call, kern)
         torch.cuda.empty_cache()
     return rows
+
+
+def parse_counts(setup, call, kern):
+    """One parse kernel call on phase 12's lanes: its segments, re-walk
+    rounds, serially walked and truncated lanes; no lane may be walked
+    serially."""
+    from zstd_tpu_torch.ops import match_finder
+
+    call(kern, setup())
+    st = match_finder.parse_stats()
+    settled = st["lanes"] - st["serial_lanes"]
+    say(f"kernel parse, device-encode lanes: {st['lanes']} lanes, "
+        f"{st['segments']} segments; re-walk rounds a lane mean "
+        f"{st['rounds_sum'] / max(settled, 1):.4f}, max {st['rounds_max']}; "
+        f"{st['serial_lanes']} lanes walked serially, "
+        f"{st['truncated_lanes']} past MAX_SEQS")
+    need(st["lanes"] > 0 and st["serial_lanes"] == 0,
+         f"parse: {st['serial_lanes']} lanes took the serial walk")
 
 
 def main() -> int:

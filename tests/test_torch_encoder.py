@@ -89,6 +89,29 @@ def test_parse_plain_matches_reference(parsed):
     assert got[1][6, 0] > 8 + 128 and got[3][4] == 0 and got[3][5] == 0
 
 
+@pytest.mark.parametrize("name", ["spanning", "cap"])
+def test_parse_plain_matches_reference_across_segments(name):
+    """The parse kernel's schedule-model lanes (tests/
+    test_torch_parse_schedule.py): matches and random stretches across many
+    segments, and a 256 KiB lane past MAX_SEQS whose first MAX_SEQS records
+    and anchor are kept; the plain version equal to the reference's Pallas
+    parse (interpret mode) on every record below nseq."""
+    from test_torch_parse_schedule import cap_lane, spanning_lanes
+
+    data, nv = {"spanning": spanning_lanes, "cap": cap_lane}[name]()
+    ref = [np.asarray(r) for r in ref_mf.parse_blocks(
+        jnp.asarray(data), jnp.asarray(nv), interpret=True)]
+    got = [g.numpy() for g in match_finder.parse_blocks_plain(
+        torch.from_numpy(data), torch.from_numpy(nv))]
+    assert np.array_equal(ref[3], got[3]) and np.array_equal(ref[4], got[4])
+    for b, n in enumerate(ref[3]):
+        for k in range(3):
+            assert np.array_equal(ref[k][b, :n], got[k][b, :n]), (b, k)
+    if name == "cap":
+        assert got[3][0] == match_finder.MAX_SEQS
+        assert got[4][0] == 167900 and nv[0] == 262144
+
+
 def test_parse_records_reconstruct_blocks(parsed):
     _, (ll, ml, of, nseq, anchor) = parsed
     for b, p in enumerate(seeded_payloads()):

@@ -8,7 +8,12 @@ the windowed executor (near and far caps, dictionary prefills, matches
 across group boundaries, bad offsets); the decoder runs chained frames and
 the committed dictionary frames of zstd_tpu_torch/testdata. The encoder's
 kernels (greedy parse, FSE encode) run on seeded random blocks and on the
-sequence lanes of real payloads, RLE-table and empty lanes included, and
+sequence lanes of real payloads; the parse also on the lanes of the numpy
+model of its segmented walk (tests/test_torch_parse_schedule.py: matches
+and random stretches across segments, a lane past MAX_SEQS too wide for
+shared memory, the same lanes read from global memory), with its
+counters equal to the model's, and on candidates with lcp past 8 and 306
+lanes; RLE-table and empty lanes included, and
 the encoder on the card is held to the host encoder's frames. The
 redesigned sequence kernel also runs 1-sequence lanes, RLE tables and a
 batch of more than 1024 lanes; the resolve kernel runs random records
@@ -55,8 +60,9 @@ from zstd_tpu_torch.ops.fse_encode import (encode_sequence_lanes_plain,
                                            out_words_for, seq_lane_arrays)
 from zstd_tpu_torch.ops.huffman import (huffman_lanes, huffman_lanes_plain,
                                         lane_stats)
-from zstd_tpu_torch.ops.match_finder import (find_candidates, parse_lanes,
-                                             parse_lanes_plain)
+from zstd_tpu_torch.ops.match_finder import (MIN_MATCH, find_candidates,
+                                             parse_lanes, parse_lanes_plain,
+                                             parse_stats)
 from zstd_tpu_torch.ops.sequence import (resolve_frames, resolve_frames_plain,
                                          sequence_lanes, sequence_lanes_plain)
 from zstd_tpu_torch.ops.xxhash64 import (xxh64_low32_lanes,
@@ -883,6 +889,90 @@ def test_parse_kernel_matches_plain(cuda, seed):
     for a, b in zip(got, exp):
         assert torch.equal(a, b)
     assert int(got[1].max()) > 136  # an extension of whole 128-byte steps
+
+
+def _parse_both(device, args):
+    """The parse kernel and the plain version on numpy lanes `args`
+    (data, cand, lcp, n_valid): (kernel outputs, plain outputs, the
+    kernel's counters)."""
+    args = [torch.from_numpy(a).to(device) for a in args]
+    got = parse_lanes(*args)
+    stats = parse_stats()
+    exp = parse_lanes_plain(*args)
+    torch.cuda.synchronize()
+    return got, exp, stats
+
+
+@pytest.mark.parametrize("name", ["random31", "random32", "spanning",
+                                  "cap", "serial"])
+def test_parse_kernel_on_model_lanes(cuda, name):
+    """The schedule model's lanes (empty, one-byte, RLE, random and
+    long-repeat lanes; matches and literal runs across segments; a 256 KiB
+    lane past MAX_SEQS, too wide for shared memory; lanes whose segments
+    never resynchronise, walked serially): bit-equal to the plain version,
+    with the counters the numpy model gives."""
+    from test_torch_parse_schedule import lane_set, model_lanes
+
+    got, exp, stats = _parse_both(cuda, lane_set(name))
+    for a, b in zip(got, exp):
+        assert torch.equal(a, b)
+    assert stats == model_lanes(*lane_set(name))[5]
+    if name == "cap":
+        assert stats["truncated_lanes"] == 1
+    if name == "serial":
+        assert stats["serial_lanes"] == 3
+
+
+def test_parse_kernel_global_memory(cuda):
+    """The spanning lanes in a batch 256 KiB wide, too wide for shared
+    memory, so the kernel reads bytes, lcp and the skip set from global
+    memory: bit-equal, with the model's counters."""
+    from test_torch_parse_schedule import lane_set, model_lanes
+
+    data, cand, lcp, nv = lane_set("spanning")
+    pad = (1 << 18) - data.shape[1]
+    args = (np.pad(data, ((0, 0), (0, pad))),
+            np.pad(cand, ((0, 0), (0, pad)), constant_values=-1),
+            np.pad(lcp, ((0, 0), (0, pad))), nv)
+    got, exp, stats = _parse_both(cuda, args)
+    for a, b in zip(got, exp):
+        assert torch.equal(a, b)
+    assert stats == model_lanes(*args)[5]
+
+
+def test_parse_kernel_lcp_past_8(cuda):
+    """Candidates with lcp 9-12 (not find_candidates' own, which caps at
+    8): such a match is taken at its lcp without extension, and the
+    kernel reads those lanes' lcp from global memory: bit-equal."""
+    from test_torch_parse_schedule import lane_set
+
+    data, cand, lcp, nv = (a.copy() for a in lane_set("random31"))
+    pos = np.arange(data.shape[1])[None, :]
+    bump = (lcp >= MIN_MATCH) & (pos % 7 == 0) & (pos + 12 <= nv[:, None])
+    lcp[bump] = 9 + (pos % 4).repeat(len(nv), 0)[bump]
+    args = [torch.from_numpy(a).to(cuda) for a in (data, cand, lcp, nv)]
+    got = parse_lanes(*args)
+    exp = parse_lanes_plain(*args)
+    torch.cuda.synchronize()
+    assert int(bump.sum()) > 100
+    for a, b in zip(got, exp):
+        assert torch.equal(a, b)
+
+
+def test_parse_kernel_many_lanes(cuda):
+    """306 lanes (612 CTAs, several waves of clusters): bit-equal."""
+    sets = [random_blocks(seed, L=4096) for seed in range(40, 57)]
+    data = np.concatenate([d for d, _ in sets])
+    nv = np.concatenate([n for _, n in sets])
+    d = torch.from_numpy(data).to(cuda)
+    n = torch.from_numpy(nv).to(cuda)
+    cand, lcp = find_candidates(d, n)
+    got = parse_lanes(d, cand, lcp, n)
+    exp = parse_lanes_plain(d, cand, lcp, n)
+    torch.cuda.synchronize()
+    for a, b in zip(got, exp):
+        assert torch.equal(a, b)
+    assert parse_stats()["lanes"] == int((nv > 0).sum())
 
 
 def _seq_lanes(device, payloads):

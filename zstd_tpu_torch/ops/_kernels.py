@@ -50,7 +50,8 @@ SIGNATURES = {
                         _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I,
                         _P, _I, _P]),
     "parse": ("zt_parse_lanes",
-              [_P, _LL, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P]),
+              [_P, _LL, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P,
+               _P]),
     "fse_encode": ("zt_fse_encode",
                    [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _LL, _P,
                     _P]),

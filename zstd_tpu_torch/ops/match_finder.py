@@ -10,13 +10,18 @@ Port of zstd_tpu/ops/match_finder.py. The work splits as in the reference:
     3. lcp8[i] = length of the common prefix of data[i:] / data[cand:]
        capped at 8 (two 4-byte windows + XOR + trailing equal bytes)
 
-  CUDA kernel (csrc/parse.cu, one warp per lane; a Pallas kernel in the
-  reference, `_parse_kernel`):
+  CUDA kernel (csrc/parse.cu, a cluster of two CTAs per lane, a warp a
+  segment; a Pallas kernel in the reference, `_parse_kernel`):
     4. greedy parse: walk positions left to right; take a match when
        lcp >= MIN_MATCH (extending 8-capped matches byte-equal up to the
        valid end in whole 128-byte steps), else advance with the
        reference's literal-run skip acceleration. Emits (ll, ml, offset)
-       records per lane.
+       records per lane. The kernel walks up to SEGMENTS segments of a
+       lane at once and re-walks each from the exit of the one above until
+       they agree (a walk is in step with another once both take a match
+       at the same position; a segment with no hit left forwards its
+       entry in closed form); `parse_stats()` reads its counters of the
+       last call.
 
 `parse_lanes` launches the kernel for CUDA tensors and runs
 `parse_lanes_plain` (a serial walk of each lane on host copies: the parse
@@ -45,6 +50,10 @@ MAX_SEQS = 32768     # emitted records cap per lane
 EXTEND_STEP = 128    # bytes compared per extension step
 EXTEND_CAP = 1 << 20  # no extension step starts at or past this length
 M32 = 0xFFFFFFFF
+# the kernel's constants (csrc/parse.cu), for its schedule model
+SEGMENTS = 64         # segments (a warp each) a lane, at most
+SEG_MIN = 512         # least positions a segment
+ROUND_CAP = 8         # re-walk rounds before a lane is walked in order
 
 
 def find_candidates(data, n_valid):
@@ -172,6 +181,47 @@ def parse_lanes_plain(data, cand, lcp, n_valid):
     return ll, ml, off, nseq, anchor
 
 
+def skip_words(L: int) -> np.ndarray:
+    """The skip set T of the literal-run rule (t_0 = 0, t_k+1 = t_k + 1 +
+    (t_k >> 8): the offsets from anchor a literal run visits) as a bitmap
+    of uint32 words, through the first t >= L, with a word to spare."""
+    n = (L + (L >> 8) + 1) // 32 + 2
+    bits = np.zeros(32 * n, np.uint8)
+    t = 0
+    while t < 32 * n:
+        bits[t] = 1
+        t += 1 + (t >> 8)
+    return np.packbits(bits, bitorder="little").view("<u4")
+
+
+_SKIP = {}
+
+
+def _skip_tensor(L: int, device):
+    """skip_words(L) on `device`, made once per width and device."""
+    key = (L, str(device))
+    if key not in _SKIP:
+        _SKIP[key] = torch.from_numpy(
+            skip_words(L).view(np.int32).copy()).to(device)
+    return _SKIP[key]
+
+
+def parse_buffers(data):
+    """The parse kernel's outputs (ll, ml, off, nseq, anchor), its skip-set
+    bitmap, scratch (extended match lengths by position, then the bitmaps
+    of a lane too wide for shared memory) and counters, for CUDA lanes
+    `data` (B, L)."""
+    B, L = data.shape
+    dev = data.device
+    out = tuple(torch.zeros((B, MAX_SEQS), dtype=torch.int32, device=dev)
+                for _ in range(3)) + tuple(
+        torch.empty((B,), dtype=torch.int32, device=dev) for _ in range(2))
+    scratch = torch.empty((B, L + 2 * ((L + 31) // 32)), dtype=torch.int32,
+                          device=dev)
+    stats = torch.zeros((len(STAT_KEYS),), dtype=torch.int64, device=dev)
+    return out, _skip_tensor(L, dev), scratch, stats
+
+
 def parse_lanes(data, cand, lcp, n_valid):
     """Greedy-parse B block lanes from their candidates: the CUDA kernel for
     CUDA tensors, parse_lanes_plain for CPU tensors. data (B, L) uint8,
@@ -183,18 +233,31 @@ def parse_lanes(data, cand, lcp, n_valid):
         return parse_lanes_plain(data, cand, lcp, n_valid)
     _check(data, cand, lcp, n_valid)
     B, L = data.shape
-    dev = data.device
-    ll, ml, off = (torch.zeros((B, MAX_SEQS), dtype=torch.int32, device=dev)
-                   for _ in range(3))
-    nseq = torch.empty((B,), dtype=torch.int32, device=dev)
-    anchor = torch.empty((B,), dtype=torch.int32, device=dev)
-    _kernels.launch("parse", data, L, cand, lcp, n_valid, B, ll, ml, off,
-                    nseq, anchor)
+    out, tb, scratch, stats = parse_buffers(data)
+    _kernels.launch("parse", data, L, cand, lcp, n_valid, B, *out, tb,
+                    tb.numel(), scratch, stats)
     parse_lanes.launches += 1
-    return ll, ml, off, nseq, anchor
+    parse_lanes.last_stats = stats
+    return out
 
 
 parse_lanes.launches = 0
+parse_lanes.last_stats = None
+
+STAT_KEYS = ("lanes", "segments", "rounds_sum", "rounds_max",
+             "serial_lanes", "truncated_lanes")
+
+
+def parse_stats(stats=None) -> dict:
+    """The kernel's counters of the last CUDA call of parse_lanes (or of a
+    `stats` tensor from parse_buffers; waits for the device): lanes with
+    bytes, their segments, the re-walk rounds of the lanes settled without
+    the serial walk (sum and max), lanes walked serially, and lanes with
+    more than MAX_SEQS records."""
+    s = parse_lanes.last_stats if stats is None else stats
+    if s is None:
+        return {}
+    return dict(zip(STAT_KEYS, s.tolist()))
 
 
 def parse_blocks(data, n_valid):
