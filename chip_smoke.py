@@ -63,6 +63,22 @@ phase raises on failure, so any failure exits non-zero:
      bit-equal to their plain versions, both timed, beside their bounds;
      the parse kernel's counters (segments, re-walk rounds, lanes walked
      serially, of which there may be none, and lanes past MAX_SEQS)
+ 15. the fused step (models/fused.py) on phase 4's batch at out_width
+     131072, run right after phase 6: every frame's bytes and out_len,
+     frames_bad 0, bytes_out; one counted call launches the Huffman,
+     sequence, resolve and execute kernels; 5 timed runs (GB/s beside
+     phase 5's serving) and its stages' device ms
+ 16. decoding across two ranks on the one card: two child processes
+     (`chip_smoke.py --rank R DIR`, loading the kernels phase 2 built) in
+     a gloo group over a file:// store under build/, each running
+     decode_frames_multihost on the main corpus plus a truncated frame
+     (None) and sharded_decode on make_mesh(2) over 256 of its frames,
+     every result checked in frame order on each rank; fails unless both
+     exit 0; scaling_report at world 1 (here) and 2 (one card: not a
+     scaling measurement)
+ 17. process-parallel encode: compress_frames_parallel on phase 11's
+     corpus (the pool branch, spawned workers), every frame equal to
+     compress_to_vec's; MB/s of the host's cores
 
 The line before the last is the `kernels` JSON object; the last line is
 {"ok": true, "device": {...}}.
@@ -608,7 +624,7 @@ def phase_main():
         f"launches {decode_launches}")
     say(f"main path: one serving run, checksums verified on the device, "
         f"launches {launches}")
-    return dec, batch, staged, n_bytes, launches
+    return dec, batch, staged, n_bytes, launches, payloads, frames
 
 
 SINGLE_GROUP = ("huffman", "sequence", "resolve", "execute", "xxhash64")
@@ -1166,7 +1182,7 @@ def phase_encode_host():
         f"{ratio:.4f}, every frame equal to compress_to_vec; "
         f"{t:.3f} s ({n_bytes / t / 1e6:.3f} MB/s), split "
         f"{json.dumps(enc.last_stats)}, launches {launches}")
-    return payloads, ratio
+    return payloads, frames, ratio
 
 
 def _recorded(module, name, calls: list):
@@ -1424,6 +1440,248 @@ def parse_counts(setup, call, kern):
          f"parse: {st['serial_lanes']} lanes took the serial walk")
 
 
+# --- the fused step, decoding across ranks, process-parallel encode ----------
+
+FUSED_SCOPES = ("huffman_decode", "sequence_decode", "offset_resolution",
+                "lz77_execute")
+
+
+def phase_fused(batch, payloads, serving_gbps):
+    """15. models/fused.py's fused_decode_step on phase 4's batch (1024
+    frames of 128 KiB) at out_width 131072, on the card: every frame's bytes
+    and out_len equal its payload, frames_bad 0, bytes_out the payloads'
+    total; one counted call launches the Huffman, sequence, resolve and
+    execute kernels; the mean of 5 synchronised runs beside phase 5's
+    serving GB/s, and its stages' device ms (torch.profiler, 3 runs)."""
+    import torch
+
+    from zstd_tpu_torch.models.fused import (fused_decode_step, fused_static,
+                                             to_fused_kwargs)
+
+    t0 = time.perf_counter()
+    kw = to_fused_kwargs(batch, "cuda")
+    static = fused_static(batch, 1 << 17)
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    out, out_len, ok, metrics = fused_decode_step(**kw, **static)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for k in ("huffman", "sequence", "resolve", "execute"):
+        need(launches[k] == 1, f"fused step: kernel {k} launched "
+                               f"{launches[k]} times, expected 1")
+    n = len(payloads)
+    n_bytes = sum(map(len, payloads))
+    m = {k: int(v) for k, v in metrics.items()}
+    need(m["frames_bad"] == 0, f"fused step: {m['frames_bad']} bad frames")
+    need(m["bytes_out"] == n_bytes,
+         f"fused step: bytes_out {m['bytes_out']}, expected {n_bytes}")
+    need(out.shape == (n + 1, 1 << 17), f"fused step: out {out.shape}")
+    lens = out_len.cpu().numpy()
+    rows = out.cpu().numpy()
+    for i, p in enumerate(payloads):
+        need(int(lens[i]) == len(p) and rows[i, :len(p)].tobytes() == p,
+             f"fused step: frame {i} differs from its payload")
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused_decode_step(**kw, **static)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t = sum(times) / len(times)
+    say(f"fused step: {n} frames of 128 KiB + the inert row, out_width "
+        f"{static['out_width']}, every byte exact, metrics {m}; launches "
+        f"{launches}; upload {t_up * 1e3:.3f} ms")
+    say(f"fused step: 5 runs, mean {t * 1e3:.3f} ms, {n_bytes / t / 1e9:.4f} "
+        f"GB/s (serving, phase 5: {serving_gbps:.4f} GB/s)")
+    scope_ms, busy_ms = profiled_scopes(
+        lambda: fused_decode_step(**kw, **static), FUSED_SCOPES, runs=3)
+    if busy_ms == 0:
+        say("fused step stages: the profiler saw no device time; not "
+            "measured")
+    else:
+        say(f"fused step stages (device ms per run, torch.profiler, 3 runs):"
+            f" {json.dumps(scope_ms)}; device busy {busy_ms:.3f} ms of "
+            f"{t * 1e3:.3f} ms wall, idle share {1 - busy_ms / (t * 1e3):.4f}")
+    del kw, out
+    torch.cuda.empty_cache()
+
+
+RANKS = 2
+SHARDED_FRAMES = 256
+
+
+def phase_ranks(frames):
+    """16. Decoding across two ranks on the one card: two child processes
+    (`chip_smoke.py --rank R DIR`, started after phase 2 built every
+    kernel, which they load and never rebuild) join a gloo group over a
+    file:// store under build/; each decodes the main corpus plus one
+    truncated frame with decode_frames_multihost and 256 of its frames
+    with sharded_decode on make_mesh(2), checks both in frame order, and
+    runs scaling_report. Each path is counted on its own: the counts are
+    zeroed just before it and read just after; decode_frames_multihost
+    must launch each of the four decode kernels, sharded_decode each
+    exactly once. The run fails unless both exit 0. World 1 is
+    scaling_report here, without a group. One card either way: this is
+    not a scaling measurement."""
+    import pickle
+    import shutil
+
+    from zstd_tpu_torch.parallel.multihost import scaling_report
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_ranks")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    with open(os.path.join(work, "frames.pkl"), "wb") as f:
+        pickle.dump(frames, f)
+    one = scaling_report(frames)
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(
+        os.path.abspath(__file__))}
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w")
+            for r in range(RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r), work],
+        env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(RANKS)]
+    try:
+        for p in procs:
+            p.wait(timeout=300)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    t = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                tail = f.read()[-4000:]
+            raise Check(f"rank {r} of {RANKS} exited {p.returncode}:\n{tail}")
+    reports = []
+    for r in range(RANKS):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    say(f"ranks: {RANKS} processes on one card, both exit 0 in {t:.1f} s "
+        f"(start included); each checked {len(frames) + 1} frames in frame "
+        f"order (the truncated one None) and {SHARDED_FRAMES} frames of "
+        f"sharded_decode; launches per rank, decode_frames_multihost "
+        f"{[rep['multihost_launches'] for rep in reports]}, sharded_decode "
+        f"(one each required) {[rep['sharded_launches'] for rep in reports]}")
+    say(f"scaling_report, world 1 (this process, no group): "
+        f"{json.dumps(one)}")
+    for rep in reports:
+        say(f"scaling_report, world {RANKS}, rank {rep['report']['process']}"
+            f": {json.dumps(rep['report'])}")
+
+
+def rank_child(rank: int, work: str) -> int:
+    """One rank of phase 16 (see phase_ranks); raises on any mismatch."""
+    import pickle
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from zstd_tpu_torch.models.framer import Framer
+    from zstd_tpu_torch.models.fused import fused_static
+    from zstd_tpu_torch.ops import _kernels
+    from zstd_tpu_torch.parallel.mesh import make_mesh, sharded_decode
+    from zstd_tpu_torch.parallel.multihost import (decode_frames_multihost,
+                                                   initialize_distributed,
+                                                   scaling_report)
+
+    stale = [n for n in _kernels.NAMES if _kernels._stale(n)]
+    need(not stale, f"rank {rank}: kernels not built: {stale}")
+    initialize_distributed(f"file://{os.path.join(work, 'store')}", RANKS,
+                           rank)
+    with open(os.path.join(work, "frames.pkl"), "rb") as f:
+        frames = pickle.load(f)
+    payloads = make_corpus(128)
+    counters = _counters()
+    path = ("huffman", "sequence", "resolve", "execute")
+    for fn in counters.values():
+        fn.launches = 0
+    got = decode_frames_multihost(frames + [frames[0][:len(frames[0]) // 2]])
+    multihost = {k: fn.launches for k, fn in counters.items()}
+    need(len(got) == len(frames) + 1 and got[-1] is None,
+         f"rank {rank}: the truncated frame is not None")
+    for i, p in enumerate(payloads):
+        need(got[i] == p, f"rank {rank}: frame {i} differs")
+    for k in path:
+        need(multihost[k] > 0, f"rank {rank}: decode_frames_multihost never "
+                               f"launched kernel {k}")
+
+    framer = Framer()
+    for i, fr in enumerate(frames[:SHARDED_FRAMES]):
+        framer.add_frame(fr, i)
+    batch = framer.build()
+    static = fused_static(batch, 1 << 17)
+    mesh = make_mesh(RANKS)
+    for fn in counters.values():
+        fn.launches = 0
+    out, out_len, ok, metrics = sharded_decode(batch, static, mesh)
+    sharded = {k: fn.launches for k, fn in counters.items()}
+    for k in path:
+        need(sharded[k] == 1, f"rank {rank}: sharded_decode launched kernel "
+                              f"{k} {sharded[k]} times, expected 1")
+    rows = SHARDED_FRAMES + 1 + (-(SHARDED_FRAMES + 1)) % RANKS
+    need(out.shape == (rows, 1 << 17) and bool(ok.all()),
+         f"rank {rank}: sharded_decode out {out.shape}, ok {ok.all()}")
+    need(int(metrics["frames_ok"]) == rows
+         and int(metrics["frames_bad"]) == 0
+         and int(metrics["bytes_out"]) == sum(
+             map(len, payloads[:SHARDED_FRAMES])),
+         f"rank {rank}: sharded_decode metrics {metrics}")
+    for i, p in enumerate(payloads[:SHARDED_FRAMES]):
+        need(int(out_len[i]) == len(p) and out[i, :len(p)].tobytes() == p,
+             f"rank {rank}: sharded frame {i} differs")
+    report = scaling_report(frames)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump({"report": report, "multihost_launches": multihost,
+                   "sharded_launches": sharded}, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_parallel_encode(payloads, frames):
+    """17. encoding.parallel.compress_frames_parallel on phase 11's corpus
+    (64 x 128 KiB: the pool branch), workers started with `spawn`; every
+    frame equal to compress_to_vec's (phase 11's frames). The rate is the
+    host's cores', not the card's: a warm-up call starts the pool, then 3
+    timed calls."""
+    from zstd_tpu_torch.encoding import parallel
+
+    n_bytes = sum(map(len, payloads))
+    workers = min(os.cpu_count() or 4, 16)
+    t0 = time.perf_counter()
+    got = parallel.compress_frames_parallel(payloads, workers=workers)
+    t_first = time.perf_counter() - t0
+    need(got == frames, "parallel encode: a frame differs from "
+                        "compress_to_vec's")
+    times = []
+    try:
+        for _ in range(3):
+            t0 = time.perf_counter()
+            again = parallel.compress_frames_parallel(payloads,
+                                                      workers=workers)
+            times.append(time.perf_counter() - t0)
+            need(again == frames, "parallel encode: a timed run differs")
+    finally:
+        parallel.shutdown_pool()
+    t = sum(times) / len(times)
+    say(f"parallel encode: {len(payloads)} frames, {n_bytes} bytes, "
+        f"{workers} spawned workers (os.cpu_count() {os.cpu_count()}), every "
+        f"frame equal to compress_to_vec; first call (pool start) "
+        f"{t_first:.3f} s; 3 runs, mean {t:.4f} s, {n_bytes / t / 1e6:.3f} "
+        f"MB/s (host cores, not the card)")
+
+
 def main() -> int:
     import torch
 
@@ -1442,10 +1700,12 @@ def main() -> int:
     card, name = phase_card()
     phase_build()
     phase_small()
-    dec, batch, staged, n_bytes, launches = phase_main()
-    phase_serving(dec, batch, staged, n_bytes)
+    dec, batch, staged, n_bytes, launches, main_payloads, main_frames = \
+        phase_main()
+    t_serving, _ = phase_serving(dec, batch, staged, n_bytes)
     rows = phase_kernels(batch, staged, launches)
-    del dec, batch, staged
+    phase_fused(batch, main_payloads, n_bytes / t_serving / 1e9)
+    del dec, batch, staged, main_payloads
     phase_chained_small()
     dec, batch, staged, n_bytes, launches = phase_chained()
     phase_serving(dec, batch, staged, n_bytes, label="chained serving")
@@ -1458,10 +1718,12 @@ def main() -> int:
     huff["max_abs_err"] = max(huff["max_abs_err"],
                               phase_huffman_chained(staged, far))
     del dec, batch, staged, far
-    payloads, host_ratio = phase_encode_host()
+    payloads, host_frames, host_ratio = phase_encode_host()
     launches, args = phase_encode_device(payloads, host_ratio)
     phase_cli()
     rows += phase_encode_kernels(args, launches)
+    phase_ranks(main_frames)
+    phase_parallel_encode(payloads, host_frames)
     say(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1471,4 +1733,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_child(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -27,6 +27,7 @@ shared-memory ring beside 16 KiB frames, 2048 rows at the smallest ring,
 and random records whose rounds per chunk must equal those of the numpy
 model of its schedule (tests/test_torch_execute_schedule.py); the
 checksum kernel runs lengths 0-33 up to 128 KiB from unaligned starts.
+The fused decode step (models/fused.py) on the card equals its CPU run.
 The Huffman kernel runs the lanes of the numpy model of its segmented walk
 (tests/test_torch_huffman_schedule.py: malformed lanes, tables that break
 its property, short and one-symbol lanes), with its serial lanes and
@@ -710,6 +711,58 @@ def test_pipelined_on_cuda(case):
     served = list(dec.decode_frames_pipelined([frames, frames],
                                               pull_outputs=False))
     assert all(bool(ok.all()) for _, _, ok in served)
+
+
+def fused_case(device, corrupt: bool):
+    """(kwargs on `device`, static, payloads, bad frame or None): the fused
+    step's example_batch(32), or 12 frames of 16 KiB with the last byte
+    of frame 3's sequence stream zeroed (its padding sentinel lost)."""
+    from zstd_tpu_torch.models.framer import Framer
+    from zstd_tpu_torch.models.fused import (example_batch, fused_static,
+                                             to_fused_kwargs)
+
+    if not corrupt:
+        return (*example_batch(32, device=device), None)
+    payloads = _payloads(12, 16 << 10, seed=5)
+    framer = Framer()
+    for i, p in enumerate(payloads):
+        framer.add_frame(compress_to_vec(p, CompressionLevel.FASTEST), i)
+    batch = framer.build()
+    bad = 3
+    lane = int(np.nonzero((batch.seq_n > 0)
+                          & (batch.seq_dst_frame == bad))[0][0])
+    batch.seq_streams = batch.seq_streams.copy()
+    batch.seq_streams[lane, batch.seq_len[lane] - 1] = 0
+    return (to_fused_kwargs(batch, device), fused_static(batch, 16 << 10),
+            payloads, bad)
+
+
+@pytest.mark.parametrize("corrupt", [False, True])
+def test_fused_step_on_cuda_equals_its_cpu_run(cuda, corrupt):
+    """models/fused.py's step on the card (one launch each of the Huffman,
+    sequence, resolve and execute kernels) against the same step on the
+    CPU (their plain versions): on example_batch(32), and on a batch with
+    one broken sequence stream (its frame alone fails, all zero)."""
+    from zstd_tpu_torch.models.fused import fused_decode_step
+
+    kw, static, payloads, bad = fused_case(cuda, corrupt)
+    fns = (huffman_lanes, sequence_lanes, resolve_frames, execute_lanes)
+    before = [f.launches for f in fns]
+    got = fused_decode_step(**kw, **static)
+    assert [f.launches for f in fns] == [b + 1 for b in before]
+    ref = fused_decode_step(**{k: v.cpu() for k, v in kw.items()}, **static)
+    for a, b in zip(got[:3], ref[:3]):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    assert {k: int(v) for k, v in got[3].items()} == \
+        {k: int(v) for k, v in ref[3].items()}
+    out, out_len, ok = (t.cpu() for t in got[:3])
+    assert int(got[3]["frames_bad"]) == (1 if corrupt else 0)
+    for i, p in enumerate(payloads):
+        if i != bad:
+            assert bool(ok[i]) and int(out_len[i]) == len(p)
+            assert out[i, :len(p)].numpy().tobytes() == p
+    if corrupt:
+        assert not bool(ok[bad]) and not out[bad].any()
 
 
 @pytest.mark.parametrize("seed", [11, 12, 13])

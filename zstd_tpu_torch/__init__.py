@@ -14,7 +14,11 @@ bit pack (`ops/bitpack.pack_bits_lanes`).
   - encoding: compress, compress_to_vec, FrameCompressor (host encoder)
   - models: BatchDecoder, decode_all_device (the device decode pipeline),
     BatchEncoder (the device encoder; with encoding.device_matcher's
-    DeviceMatcher the match finding runs on the device too)
+    DeviceMatcher the match finding runs on the device too),
+    create_raw_dict_from_source / _from_dir (the dictionary trainer),
+    models.fused (the decode pipeline as one step over fixed shapes)
+  - parallel: decode across torch.distributed ranks (multihost, mesh);
+    encoding.parallel: compression across worker processes
 """
 
 from zstd_tpu_torch.common import constants
@@ -40,6 +44,7 @@ __all__ = [
     "decode_all", "decode_all_to_vec", "decode_frame",
     "CompressionLevel", "compress", "compress_to_vec", "FrameCompressor",
     "BatchDecoder", "decode_all_device", "BatchEncoder",
+    "create_raw_dict_from_source", "create_raw_dict_from_dir",
 ]
 
 _LAZY = {
@@ -50,6 +55,10 @@ _LAZY = {
     "decode_all_device": ("zstd_tpu_torch.models.splitter",
                           "decode_all_device"),
     "BatchEncoder": ("zstd_tpu_torch.models.batch_encoder", "BatchEncoder"),
+    "create_raw_dict_from_source": ("zstd_tpu_torch.models.dict_trainer",
+                                    "create_raw_dict_from_source"),
+    "create_raw_dict_from_dir": ("zstd_tpu_torch.models.dict_trainer",
+                                 "create_raw_dict_from_dir"),
 }
 
 

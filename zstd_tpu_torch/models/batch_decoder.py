@@ -153,6 +153,43 @@ def _resolve_chained(ll_full, ml_full, of_full, is_real, init_hist, rows,
                           rows, cont)
 
 
+def decode_records(d, chain_rows=None, chain_cont=None):
+    """Stages 1a, 1b and 2 on the staged arrays `d` (the keys of
+    BatchDecoder.stage, which are models/fused.py's keyword names):
+    (lit_full, ll_full, ml_full, offsets, out_len, ok) of every frame row,
+    ok False where a lane of the row or its resolution failed. With chained
+    frames, chain_rows and chain_cont as resolve_frames takes them."""
+    # the stages write in place: start from copies of the staged bases
+    lit_full = d["lit_base"].clone()
+    ll_full = d["ll_base"].clone()
+    ml_full = d["ml_base"].clone()
+    of_full = d["of_base"].clone()
+    frame_ok = torch.ones(lit_full.shape[0], dtype=torch.bool,
+                          device=lit_full.device)
+
+    with scope("huffman_decode"):
+        huffman_lanes(d["huff_streams"], d["huff_pos"], d["huff_tid"],
+                      d["huff_nsym"], d["huff_dst_frame"], d["huff_dst_off"],
+                      d["huff_tables"], d["huff_maxbits"], lit_full, frame_ok)
+    with scope("sequence_decode"):
+        sequence_lanes(d["seq_streams"], d["seq_pos"], d["seq_n"],
+                       d["ll_tid"], d["of_tid"], d["ml_tid"], d["ll_tables"],
+                       d["of_tables"], d["ml_tables"], d["ll_logs"],
+                       d["of_logs"], d["ml_logs"], d["seq_dst_frame"],
+                       d["seq_dst_off"], d["seq_lit_total"],
+                       d["seq_trail_slot"], ll_full, ml_full, of_full,
+                       frame_ok)
+    with scope("offset_resolution"):
+        if chain_rows is None:
+            offsets, out_len, res_ok = _resolve(
+                ll_full, ml_full, of_full, d["is_real"], d["init_hist"])
+        else:
+            offsets, out_len, res_ok = _resolve_chained(
+                ll_full, ml_full, of_full, d["is_real"], d["init_hist"],
+                chain_rows, chain_cont)
+    return lit_full, ll_full, ml_full, offsets, out_len, frame_ok & res_ok
+
+
 class BatchDecoder:
     """Decode many independent frames data-parallel on the device."""
 
@@ -242,36 +279,11 @@ class BatchDecoder:
         vprint(f"run_device: {Bf - 1} frame rows, "
                f"{d['huff_streams'].shape[0] - 1} huffman lanes, "
                f"{d['seq_streams'].shape[0] - 1} sequence lanes")
-        # the stages write in place: start from copies of the staged bases
-        lit_full = d["lit_base"].clone()
-        ll_full = d["ll_base"].clone()
-        ml_full = d["ml_base"].clone()
-        of_full = d["of_base"].clone()
-        frame_ok = torch.ones(Bf, dtype=torch.bool, device=self.device)
-
-        with scope("huffman_decode"):
-            huffman_lanes(d["huff_streams"], d["huff_pos"], d["huff_tid"],
-                          d["huff_nsym"], d["huff_dst_frame"],
-                          d["huff_dst_off"], d["huff_tables"],
-                          d["huff_maxbits"], lit_full, frame_ok)
-        with scope("sequence_decode"):
-            sequence_lanes(d["seq_streams"], d["seq_pos"], d["seq_n"],
-                           d["ll_tid"], d["of_tid"], d["ml_tid"],
-                           d["ll_tables"], d["of_tables"], d["ml_tables"],
-                           d["ll_logs"], d["of_logs"], d["ml_logs"],
-                           d["seq_dst_frame"], d["seq_dst_off"],
-                           d["seq_lit_total"], d["seq_trail_slot"],
-                           ll_full, ml_full, of_full, frame_ok)
         chains = d["chains"]
-        with scope("offset_resolution"):
-            if chains is None:
-                offsets, out_len, res_ok = _resolve(
-                    ll_full, ml_full, of_full, d["is_real"], d["init_hist"])
-            else:
-                offsets, out_len, res_ok = _resolve_chained(
-                    ll_full, ml_full, of_full, d["is_real"], d["init_hist"],
-                    d["chain_rows"], d["chain_row_cont"])
-        ok_dev = frame_ok & res_ok
+        chain_args = (() if chains is None
+                      else (d["chain_rows"], d["chain_row_cont"]))
+        lit_full, ll_full, ml_full, offsets, out_len, ok_dev = decode_records(
+            d, *chain_args)
 
         out = None
         if d["exec_rows_list"]:
