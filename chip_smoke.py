@@ -79,6 +79,17 @@ phase raises on failure, so any failure exits non-zero:
  17. process-parallel encode: compress_frames_parallel on phase 11's
      corpus (the pool branch, spawned workers), every frame equal to
      compress_to_vec's; MB/s of the host's cores
+ 18. the local mesh in one process, run after phase 10 (late in the
+     script, torch.profiler captures were seen to lose device events):
+     make_mesh(devices=["cuda:0"] * 2), two shards on the one card.
+     Phase 4's batch through stage(batch, mesh=) and run_device, every
+     byte, out_len and ok as the single-device run, the four decode
+     kernels once per shard, its serving GB/s and device busy ms beside
+     the single device's (the partition and the reassembly, not
+     scaling); a mixed batch (chained, dictionary, window_log-24 and
+     truncated frames) lane for lane, the window kernel on each shard
+     holding chains; sharded_decode over the mesh on phase 15's batch
+     equal to the unsharded fused step
 
 The line before the last is the `kernels` JSON object; the last line is
 {"ok": true, "device": {...}}.
@@ -1018,7 +1029,7 @@ def phase_far():
     phase_serving(dec, batch, d, len(body), label="far serving", runs=3)
     need([int(c) for g in d["chains"] for c in g["cap"]] == [m.window],
          "far: the chain's cap is not the real window")
-    return d
+    return d, frame, body
 
 
 def _window_bound(d, inputs, written):
@@ -1682,6 +1693,221 @@ def phase_parallel_encode(payloads, frames):
         f"MB/s (host cores, not the card)")
 
 
+MESH_DEVICES = ("cuda:0", "cuda:0")
+
+
+def _pulled_handles(outputs, out_len, metas) -> list:
+    """Each frame's bytes from serving-mode handles, every device tensor
+    read back once."""
+    host = {}
+    got = []
+    for m in metas:
+        if not m.rows:
+            got.append(None)
+            continue
+        r = m.rows[0]
+        h = outputs[r]
+        if id(h[0]) not in host:
+            host[id(h[0])] = h[0].cpu().numpy()
+        a = host[id(h[0])]
+        got.append(a[h[1], h[2]:h[2] + int(out_len[r])].tobytes()
+                   if len(h) == 3
+                   else a[h[1], m.dict_skip:int(out_len[r])].tobytes())
+    return got
+
+
+def _device_span(dec, batch, staged, runs: int = 5) -> float:
+    """Mean ms from before a serving run's first launch to after its last,
+    CUDA events on the current stream (gaps between kernels included)."""
+    import torch
+
+    spans = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state = dec.run_device(batch, staged, pull_outputs=False, sync=False)
+        end.record()
+        dec._finalize(state, pull_outputs=False)
+        torch.cuda.synchronize()
+        spans.append(start.elapsed_time(end))
+    return sum(spans) / runs
+
+
+def phase_mesh(frames, payloads, far_frame, far_body, card, serving_gbps):
+    """18. The local mesh, one process: make_mesh(devices=MESH_DEVICES),
+    two shards on the one card.
+    (a) phase 4's 1024 x 128 KiB frames through stage(batch, mesh=) and
+    run_device: every frame exact, out_len and ok equal to the
+    single-device serving run on the same batch, the four decode kernels
+    launched once per shard (counts zeroed just before, read just after),
+    serving handles (xxhash64 once per shard too) giving the same bytes;
+    phase 5's serving measurement of the single-device and the mesh
+    staging (5 timed runs, stage and busy ms by torch.profiler), and each
+    one's device span a run by CUDA events. Two shards on one card
+    measure the partition and the reassembly, not scaling.
+    (b) a mixed batch over the same mesh: 16 main frames, a 2.5 MiB chained
+    frame, the committed dictionary frames, phase 9's window_log-24 frame
+    and a truncated frame: every lane right, the truncated one None, the
+    window kernel launched once per width group of each shard holding
+    chains.
+    (c) sharded_decode over the mesh on phase 15's batch (out_width
+    131072): equal to the unsharded fused step, padding row included,
+    each kernel launched once per shard."""
+    import torch
+
+    from zstd_tpu_torch.common.config import CompressionLevel
+    from zstd_tpu_torch.encoding.frame_enc import compress_to_vec
+    from zstd_tpu_torch.models import framer
+    from zstd_tpu_torch.models.batch_decoder import BatchDecoder
+    from zstd_tpu_torch.models.fused import (fused_decode_step, fused_static,
+                                             to_fused_kwargs)
+    from zstd_tpu_torch.parallel.mesh import make_mesh, sharded_decode
+    from zstd_tpu_torch.testdata import load_dict_fixture, matches_digest
+
+    mesh = make_mesh(devices=MESH_DEVICES)
+    n = len(mesh.devices)
+    counters = _counters()
+    path = ("huffman", "sequence", "resolve", "execute")
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        return out, {k: c.launches for k, c in counters.items()}
+
+    # (a) the main batch
+    dec = BatchDecoder()
+    batch = dec.prepare(frames)
+    single = dec.stage(batch)
+    _, one_len, one_ok = dec.run_device(batch, single, pull_outputs=False)
+    t0 = time.perf_counter()
+    staged = dec.stage(batch, mesh=mesh)
+    torch.cuda.synchronize()
+    t_stage = time.perf_counter() - t0
+    shards = [len(p[1]) for p in staged["shards"] if p is not None]
+    need(len(shards) == n, f"mesh: {shards} frames a shard, expected {n} "
+                           f"shards")
+    (outputs, out_len, ok), launches = counted(
+        lambda: dec.run_device(batch, staged))
+    for k in path:
+        need(launches[k] == n, f"mesh: kernel {k} launched {launches[k]} "
+                               f"times, expected once per shard ({n})")
+    need(np.array_equal(out_len, one_len) and np.array_equal(ok, one_ok),
+         "mesh: out_len or ok differ from the single-device run")
+    res = dec._postprocess(frames, batch, outputs, out_len, ok)
+    need(res == payloads, "mesh: decoded bytes differ from the payloads")
+    (h_out, h_len, h_ok), serve_launches = counted(
+        lambda: dec.run_device(batch, staged, pull_outputs=False))
+    for k in SINGLE_GROUP:
+        need(serve_launches[k] == n, f"mesh serving: kernel {k} launched "
+                                     f"{serve_launches[k]} times")
+    need(bool(np.all(h_ok)), "mesh serving: a checksum or lane failed")
+    need(_pulled_handles(h_out, h_len, batch.metas) == payloads,
+         "mesh serving: handles give other bytes")
+    del outputs, h_out, res
+    n_bytes = sum(map(len, payloads))
+    t_one, _ = phase_serving(dec, batch, single, n_bytes,
+                             label="mesh phase, single device serving")
+    t_mesh, _ = phase_serving(dec, batch, staged, n_bytes,
+                              label="mesh phase, mesh serving")
+    span_one = _device_span(dec, batch, single)
+    span_mesh = _device_span(dec, batch, staged)
+    say(f"mesh: {len(frames)} frames over {n} shards on {MESH_DEVICES} "
+        f"({shards} frames a shard), stage {t_stage * 1e3:.3f} ms, every "
+        f"byte exact, out_len and ok equal to the single-device run; "
+        f"launches {launches}, serving {serve_launches}")
+    say(f"mesh serving on {card}: mesh mean {t_mesh * 1e3:.3f} ms, "
+        f"{n_bytes / t_mesh / 1e9:.4f} GB/s, single device mean "
+        f"{t_one * 1e3:.3f} ms, {n_bytes / t_one / 1e9:.4f} GB/s (phase 5: "
+        f"{serving_gbps:.4f} GB/s); device span a run (CUDA events, first "
+        f"launch to last, mean of 5) mesh {span_mesh:.3f} ms, single "
+        f"{span_one:.3f} ms; two shards on one card measure the partition "
+        f"and the reassembly, not scaling")
+    del staged, single, dec
+
+    # (b) the mixed batch
+    raw, dict_frames, digests = load_dict_fixture()
+    big = make_corpus(3, frame_kb=2560, seed=3)[0]
+    mixed = list(frames[:16]) + [bytes(compress_to_vec(
+        big, CompressionLevel.FASTEST))]
+    at_dict = len(mixed)
+    mixed += dict_frames + [far_frame, frames[0][:len(frames[0]) // 2]]
+    expected = list(payloads[:16]) + [big] + [None] * len(dict_frames)
+    expected += [far_body, None]
+    dec = BatchDecoder()
+    dec.add_dict(raw)
+    mbatch = dec.prepare(mixed)
+    metas = mbatch.metas
+    need(len(metas[16].rows) > 1, "mesh mixed: the 2.5 MiB frame is not "
+                                  "chained")
+    need(all(metas[at_dict + i].dict_prefill for i in range(len(digests))),
+         "mesh mixed: a dictionary frame without its prefill")
+    need(metas[-2].window > framer.STREAM_WINDOW_CAP,
+         "mesh mixed: the window_log-24 frame is not far")
+    _, one_len, one_ok = dec.run_device(mbatch)
+    mstaged = dec.stage(mbatch, mesh=mesh)
+    (outputs, out_len, ok), launches = counted(
+        lambda: dec.run_device(mbatch, mstaged))
+    res = dec._postprocess(mixed, mbatch, outputs, out_len, ok)
+    for i, (r, e) in enumerate(zip(res, expected)):
+        if at_dict <= i < at_dict + len(digests):
+            need(matches_digest(r, digests[i - at_dict]),
+                 f"mesh mixed: dictionary frame {i} decoded wrong")
+        else:
+            need(r == e, f"mesh mixed: lane {i} decoded wrong")
+    need(res[-1] is None, "mesh mixed: the truncated frame is not None")
+    need(np.array_equal(out_len, one_len) and np.array_equal(ok, one_ok),
+         "mesh mixed: out_len or ok differ from the single-device run")
+    need(dec.host_frames == 0, f"mesh mixed: {dec.host_frames} host frames")
+    groups = [len(p[2]["chains"] or ()) for p in mstaged["shards"]
+              if p is not None]
+    need(launches["execute_window"] == sum(groups) and all(groups),
+         f"mesh mixed: window kernel launched {launches['execute_window']}"
+         f" times for chain width groups {groups} a shard")
+    for k in path[:3]:
+        need(launches[k] == n, f"mesh mixed: kernel {k} launched "
+                               f"{launches[k]} times, expected {n}")
+    say(f"mesh mixed: {len(mixed)} frames (16 simple, chained, "
+        f"{len(dict_frames)} dictionary, window_log-24 far, truncated) over "
+        f"{n} shards ({[len(p[1]) for p in mstaged['shards'] if p]} frame "
+        f"rows a shard, chain width groups {groups}); every lane exact, the "
+        f"truncated one None, out_len and ok equal to the single-device "
+        f"run; launches {launches}")
+    del dec, mbatch, mstaged, outputs, res
+
+    # (c) the fused step over the mesh
+    static = fused_static(batch, 1 << 17)
+    kw = to_fused_kwargs(batch, "cuda")
+    out1, len1, ok1, m1 = fused_decode_step(**kw, **static)
+    out1, len1, ok1 = out1.cpu().numpy(), len1.cpu().numpy(), \
+        ok1.cpu().numpy()
+    del kw
+    (out, out_len, ok, metrics), launches = counted(
+        lambda: sharded_decode(batch, static, mesh))
+    rows = len1.shape[0]
+    pad = out.shape[0] - rows
+    need(pad == (-rows) % n and np.array_equal(out[:rows], out1)
+         and np.array_equal(out_len[:rows], len1)
+         and np.array_equal(ok[:rows], ok1) and bool(ok[rows:].all())
+         and not out[rows:].any(),
+         "mesh sharded_decode: differs from the unsharded fused step")
+    m = {k: int(v) for k, v in metrics.items()}
+    need(m == {"bytes_out": int(m1["bytes_out"]),
+               "frames_ok": int(m1["frames_ok"]) + pad,
+               "frames_bad": int(m1["frames_bad"])},
+         f"mesh sharded_decode: metrics {m}")
+    for k in path:
+        need(launches[k] == n, f"mesh sharded_decode: kernel {k} launched "
+                               f"{launches[k]} times, expected {n}")
+    say(f"mesh sharded_decode: {rows} frame rows + {pad} padding over {n} "
+        f"shards, equal to the unsharded fused step; metrics {m}; launches "
+        f"{launches}")
+    del out, out1
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1704,12 +1930,13 @@ def main() -> int:
         phase_main()
     t_serving, _ = phase_serving(dec, batch, staged, n_bytes)
     rows = phase_kernels(batch, staged, launches)
-    phase_fused(batch, main_payloads, n_bytes / t_serving / 1e9)
-    del dec, batch, staged, main_payloads
+    serving_gbps = n_bytes / t_serving / 1e9
+    phase_fused(batch, main_payloads, serving_gbps)
+    del dec, batch, staged
     phase_chained_small()
     dec, batch, staged, n_bytes, launches = phase_chained()
     phase_serving(dec, batch, staged, n_bytes, label="chained serving")
-    far = phase_far()
+    far, far_frame, far_body = phase_far()
     rows.append(phase_window_kernel(staged, launches, far))
     res = next(r for r in rows if r["name"] == "resolve")
     res["max_abs_err"] = max(res["max_abs_err"],
@@ -1718,6 +1945,8 @@ def main() -> int:
     huff["max_abs_err"] = max(huff["max_abs_err"],
                               phase_huffman_chained(staged, far))
     del dec, batch, staged, far
+    phase_mesh(main_frames, main_payloads, far_frame, far_body, card,
+               serving_gbps)
     payloads, host_frames, host_ratio = phase_encode_host()
     launches, args = phase_encode_device(payloads, host_ratio)
     phase_cli()

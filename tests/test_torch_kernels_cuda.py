@@ -28,6 +28,10 @@ and random records whose rounds per chunk must equal those of the numpy
 model of its schedule (tests/test_torch_execute_schedule.py); the
 checksum kernel runs lengths 0-33 up to 128 KiB from unaligned starts.
 The fused decode step (models/fused.py) on the card equals its CPU run.
+A batch staged over a local mesh of two shards on one card (and over two
+cards where there are two) equals the single-device decode bit for bit,
+main-style and mixed (chained, dictionary and truncated frames), each
+shard's kernels launched on its own device.
 The Huffman kernel runs the lanes of the numpy model of its segmented walk
 (tests/test_torch_huffman_schedule.py: malformed lanes, tables that break
 its property, short and one-symbol lanes), with its serial lanes and
@@ -68,6 +72,7 @@ from zstd_tpu_torch.ops.sequence import (resolve_frames, resolve_frames_plain,
                                          sequence_lanes, sequence_lanes_plain)
 from zstd_tpu_torch.ops.xxhash64 import (xxh64_low32_lanes,
                                          xxh64_low32_lanes_plain)
+from zstd_tpu_torch.parallel.mesh import make_mesh
 from zstd_tpu_torch.testdata import load_dict_fixture, matches_digest
 
 pytestmark = pytest.mark.cuda
@@ -1304,3 +1309,73 @@ def test_resolve_kernel_staged_batches(case):
             assert torch.equal(a, b)
         if chain is None:
             assert bool(got[2][:-1].all())
+
+
+def _mesh_frames(kind: str):
+    """(frames, expected, dictionary, digests): main-style 16 KiB frames,
+    or a mixed batch (a 2.5 MiB chained frame, the committed dictionary
+    frames, whose digests are {frame index: digest}, and a truncated frame,
+    expected None, beside small ones)."""
+    payloads = _payloads(12, 16 << 10, seed=7)
+    frames = [bytes(compress_to_vec(p, CompressionLevel.FASTEST))
+              for p in payloads]
+    if kind == "main":
+        return frames, payloads, None, {}
+    raw, dict_frames, digests = load_dict_fixture()
+    big = _payloads(1, 5 << 19, seed=8)[0]
+    frames = frames[:4] + [bytes(compress_to_vec(big,
+                                                 CompressionLevel.FASTEST))]
+    at = len(frames)
+    frames += dict_frames + [frames[0][:len(frames[0]) // 2]]
+    expected = payloads[:4] + [big] + [b""] * len(dict_frames) + [None]
+    return frames, expected, raw, {at + i: d for i, d in enumerate(digests)}
+
+
+@pytest.mark.parametrize("kind", ["main", "mixed"])
+@pytest.mark.parametrize("cards", ["one", "two"])
+def test_local_mesh_equals_single_device(cuda, kind, cards):
+    if cards == "two" and torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    devices = ["cuda:0", "cuda:0"] if cards == "one" else ["cuda:0", "cuda:1"]
+    mesh = make_mesh(devices=devices)
+    frames, expected, raw, digests = _mesh_frames(kind)
+    dec = BatchDecoder(device="cuda:0")
+    if raw is not None:
+        dec.add_dict(raw)
+    batch = dec.prepare(frames)
+    single = dec.run_device(batch)
+    staged = dec.stage(batch, mesh=mesh)
+    _kernels.device_launches.clear()
+    sharded = dec.run_device(batch, staged)
+    launched = dict(_kernels.device_launches)
+    assert np.array_equal(single[1], sharded[1])
+    assert np.array_equal(single[2], sharded[2])
+    got = dec._postprocess(frames, batch, *sharded)
+    assert got == dec._postprocess(frames, batch, *single)
+    for i, (g, e) in enumerate(zip(got, expected)):
+        assert matches_digest(g, digests[i]) if i in digests else g == e
+    assert dec.host_frames == 0
+    # each shard's stages launched on its own device, and nowhere else
+    parts = [p for p in staged["shards"] if p is not None]
+    assert len(parts) == 2
+    want = {}
+    for dev, (_, _, d) in zip(mesh.devices, parts):
+        idx = dev.index or 0
+        for name in ("huffman", "sequence", "resolve"):
+            want[name, idx] = want.get((name, idx), 0) + 1
+        if d["exec_rows_list"]:
+            want["execute", idx] = want.get(("execute", idx), 0) + 1
+        for _ in d["chains"] or ():
+            want["execute_window", idx] = \
+                want.get(("execute_window", idx), 0) + 1
+    assert launched == want
+    # serving handles give the same bytes
+    outputs, out_len, ok = dec.run_device(batch, staged, pull_outputs=False)
+    for i, (m, e) in enumerate(zip(batch.metas, expected)):
+        if e is None:
+            continue
+        r = m.rows[0]
+        h = outputs[r]
+        row = (h[0][h[1], h[2]:h[2] + int(out_len[r])] if len(h) == 3
+               else h[0][h[1], m.dict_skip:int(out_len[r])])
+        assert bool(ok[r]) and row.cpu().numpy().tobytes() == got[i]

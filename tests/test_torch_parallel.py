@@ -16,17 +16,24 @@ The reference runs only in this process, on conftest's 8 CPU devices.
     and a truncated frame that comes back None; and with more ranks than
     frames;
   - shard_indices, process_info outside a group, scaling_report's keys
-    and make_mesh's size check; shard_arrays puts every lane on the rank
-    of its frame.
+    and make_mesh's size check (and, outside a group and without a card,
+    its error); shard_arrays puts every lane on the rank of its frame;
+    BatchDecoder.stage refuses a rank mesh;
+  - initialize_distributed with no arguments joins two ranks from
+    MASTER_ADDR, MASTER_PORT, RANK and WORLD_SIZE, as torchrun sets them,
+    and decode_frames_multihost runs there; in this process, without
+    WORLD_SIZE it does nothing, and without MASTER_ADDR torch says so.
 """
 
 import os
 import pickle
+import socket
 import subprocess
 import sys
 
 import numpy as np
 import pytest
+import torch
 import zstandard
 
 from test_torch_fused import corrupted_batch
@@ -86,16 +93,32 @@ def lane_frames():
     return frames, expected, raw, kinds
 
 
-def run_world(tmp_path, world: int, jobs: list) -> list:
-    """Run `jobs` on `world` fresh rank processes; every rank's results."""
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_world(tmp_path, world: int, jobs: list,
+              launcher: bool = False) -> list:
+    """Run `jobs` on `world` fresh rank processes; every rank's results.
+    With `launcher`, each rank gets MASTER_ADDR, MASTER_PORT (a free local
+    port), RANK and WORLD_SIZE in its environment and joins with
+    initialize_distributed()."""
     job = tmp_path / f"world{world}.pkl"
     with open(job, "wb") as f:
         pickle.dump({"world": world, "store": str(tmp_path / f"store{world}"),
-                     "jobs": jobs}, f)
+                     "jobs": jobs, "launcher": launcher}, f)
     env = {k: v for k, v in os.environ.items() if not k.startswith("XLA")}
     env["PYTHONPATH"] = ROOT
+    envs = [dict(env) for _ in range(world)]
+    if launcher:
+        port = str(_free_port())
+        for r, e in enumerate(envs):
+            e.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=port, RANK=str(r),
+                     WORLD_SIZE=str(world))
     procs = [subprocess.Popen([sys.executable, WORKER, str(job), str(r)],
-                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              cwd=ROOT, env=envs[r], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
     logs = []
@@ -137,7 +160,8 @@ def worlds(tmp_path_factory, batches, lanes):
     two = [zstandard.ZstdCompressor(level=1).compress(p)
            for p in (b"alpha" * 40, b"beta" * 77)]
     jobs = {1: sharded,
-            2: sharded + [decode, ("report", frames[:3]), ("mesh_size", 3)],
+            2: sharded + [decode, ("report", frames[:3]), ("mesh_size", 3),
+                          ("stage_mesh", frames[:3])],
             3: [decode, ("multihost", two, None, False)],
             4: sharded}
     return {w: run_world(tmp, w, j) for w, j in jobs.items()}
@@ -234,8 +258,47 @@ def test_scaling_report_keys(worlds, lanes):
 def test_make_mesh_checks_the_world(worlds):
     for rank in worlds[2]:
         assert "the group has 2 ranks" in rank["jobs"][4]
-    with pytest.raises(RuntimeError, match="no process group"):
-        mesh.make_mesh()
+    if not torch.cuda.is_available():
+        # outside a group and without a card: an error, never a CPU mesh
+        with pytest.raises(RuntimeError, match="0 CUDA cards and no process "
+                                               "group"):
+            mesh.make_mesh()
+
+
+def test_stage_refuses_a_rank_mesh(worlds):
+    for rank in worlds[2]:
+        assert "decode_frames_multihost" in rank["jobs"][5]
+
+
+def test_initialize_distributed_from_the_environment(tmp_path):
+    """Two ranks started as torchrun starts them: initialize_distributed()
+    with no arguments joins them, and decode_frames_multihost returns every
+    frame on both."""
+    payloads = [(b"launched rank frame %d " % i) * (30 + 11 * i)
+                for i in range(5)]
+    frames = [zstandard.ZstdCompressor(level=3).compress(p)
+              for p in payloads]
+    ranks = run_world(tmp_path, 2, [("multihost", frames, None, False)],
+                      launcher=True)
+    for r, rank in enumerate(ranks):
+        assert rank["outside"] == (0, 1)
+        assert rank["inside"] == (r, 2)
+        assert rank["jobs"][0] == payloads
+
+
+def test_initialize_distributed_reads_the_environment(monkeypatch):
+    """Without WORLD_SIZE one process joins nothing; with no coordinator
+    torch reads MASTER_ADDR (here unset, so it names it) instead of the
+    port failing on None."""
+    for k in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    assert multihost.initialize_distributed() is None
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    assert multihost.initialize_distributed() is None
+    assert multihost.process_info() == (0, 1)
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
+        multihost.initialize_distributed(None, 2, 0)
+    assert multihost.process_info() == (0, 1)
 
 
 @pytest.mark.parametrize("n", [2, 3, 4])

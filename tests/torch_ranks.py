@@ -3,7 +3,11 @@
     python tests/torch_ranks.py JOB_FILE RANK
 
 JOB_FILE is a pickle the test wrote: {"world": n, "store": path, "jobs":
-[...]}, each job one of
+[...], "launcher": bool}; with "launcher" the rank joins its group with
+parallel.multihost.initialize_distributed() and no arguments, from the
+MASTER_ADDR, MASTER_PORT, RANK and WORLD_SIZE the test set in its
+environment, as torchrun sets them; else over the file:// store. Each job
+is one of
   ("sharded", kwargs, static)           parallel.mesh.sharded_decode on
                                         make_mesh(n), on the CPU
   ("multihost", frames, dict_bytes, tiny)
@@ -14,6 +18,9 @@ JOB_FILE is a pickle the test wrote: {"world": n, "store": path, "jobs":
                                         utils.caps.tiny_caps() when tiny)
   ("report", frames)                    scaling_report on the CPU
   ("mesh_size", m)                      make_mesh(m): the error it raises
+  ("stage_mesh", frames)                BatchDecoder.stage(batch,
+                                        mesh=make_mesh(n)): the error it
+                                        raises
 The rank writes its results, in job order, to JOB_FILE.RANK.out (a pickle),
 after process_info() outside and inside the group. It imports torch and
 zstd_tpu_torch only, never jax or zstd_tpu.
@@ -41,7 +48,9 @@ def run(job_file: str, rank: int) -> None:
     world = spec["world"]
     results = {"outside": multihost.process_info()}
     url = f"file://{spec['store']}"
-    if world == 1:  # initialize_distributed is a no-op for one process
+    if spec.get("launcher"):
+        multihost.initialize_distributed()
+    elif world == 1:  # initialize_distributed is a no-op for one process
         dist.init_process_group("gloo", init_method=url, world_size=1,
                                 rank=0)
     else:
@@ -67,6 +76,13 @@ def run(job_file: str, rank: int) -> None:
                 make_mesh(job[1])
                 out.append(None)
             except ValueError as e:
+                out.append(str(e))
+        elif job[0] == "stage_mesh":
+            dec = BatchDecoder(device="cpu")
+            try:
+                dec.stage(dec.prepare(job[1]), mesh=make_mesh(world))
+                out.append(None)
+            except TypeError as e:
                 out.append(str(e))
     results["jobs"] = out
     dist.destroy_process_group()

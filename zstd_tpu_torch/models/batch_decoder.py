@@ -25,10 +25,15 @@ rejects it).
 
 The batch crossing into `stage()` is any object with the framer's
 DeviceBatch fields as NumPy arrays, so the same batch can be fed to this
-package and to the reference package.
+package and to the reference package. `stage(batch, mesh=)` splits it over
+the devices of a parallel.mesh.LocalMesh, one shard of whole frames each
+(split_batch), and run_device runs every shard on its device.
 """
 
+import contextlib
+import dataclasses
 import os
+import types
 
 import numpy as np
 import torch
@@ -52,6 +57,9 @@ _LANE = ("huff_streams", "huff_pos", "huff_tid", "huff_nsym",
 _TABLES = ("huff_tables", "huff_maxbits", "ll_tables", "of_tables",
            "ml_tables", "ll_logs", "of_logs", "ml_logs")
 _FRAME = ("lit_base", "ll_base", "ml_base", "of_base", "is_real")
+# every array a frame row indexes, and each lane kind's arrays
+_ROW = _FRAME + ("frame_hist", "row_lit_len", "out_len")
+_LANE_KINDS = {"huff": _LANE[:6], "seq": _LANE[6:]}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -64,6 +72,64 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device available (pass device='cpu' to run the plain "
             "torch versions on the host)")
     return dev
+
+
+def on_device(device):
+    """The context in which `device` is the current CUDA device, so that a
+    kernel launches on its current stream; nothing for a CPU device."""
+    dev = torch.device(device)
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def split_batch(batch, n: int) -> list:
+    """The batch in n shards of whole frames, for BatchDecoder.stage(batch,
+    mesh=): per shard None (no frame) or (sub_batch, rows), rows the
+    batch's frame rows the shard holds, in order.
+
+    Frames (those with rows) split in batch order into n contiguous blocks
+    balanced by output bytes (a frame goes to the block that holds the
+    middle of its share of the total out_len), so one long chained frame
+    does not sit beside half the batch. A sub_batch holds all of its
+    frames' rows (every block group of a chain), the Huffman and sequence
+    lanes whose destination row is one of them, the replicated tables, and
+    the trailing inert row and lane; every row index (the lanes'
+    destinations, row_meta, the metas' rows) is renumbered to the shard."""
+    metas = [m for m in batch.metas if m.rows]
+    out_len = np.asarray(batch.out_len)
+    weight = np.array([max(int(out_len[m.rows].sum()), 1) for m in metas],
+                      np.float64)
+    middle = np.cumsum(weight) - weight / 2
+    shard = np.minimum((middle * n / max(weight.sum(), 1.0)).astype(np.int64),
+                       n - 1)
+    return [_sub_batch(batch, [m for m, s in zip(metas, shard) if s == k])
+            for k in range(n)]
+
+
+def _sub_batch(batch, metas):
+    """split_batch's share of `batch` holding `metas`, or None."""
+    if not metas:
+        return None
+    Bf = batch.lit_base.shape[0]
+    rows = np.asarray(sorted(r for m in metas for r in m.rows), np.int64)
+    local = np.full(Bf, -1, np.int64)
+    local[rows] = np.arange(len(rows))
+    take = np.append(rows, Bf - 1)  # the inert row closes the shard
+    sub = {k: np.asarray(getattr(batch, k))[take] for k in _ROW}
+    sub.update({k: np.asarray(getattr(batch, k)) for k in _TABLES})
+    for kind, keys in _LANE_KINDS.items():
+        dst = np.asarray(getattr(batch, f"{kind}_dst_frame"))
+        inert = dst.shape[0] - 1
+        lanes = np.nonzero(local[dst[:inert]] >= 0)[0]
+        sub.update({k: np.asarray(getattr(batch, k))[np.append(lanes, inert)]
+                    for k in keys})
+        sub[f"{kind}_dst_frame"][:-1] = local[dst[lanes]]
+    metas = [dataclasses.replace(m, rows=[int(local[r]) for r in m.rows])
+             for m in metas]
+    row_meta = np.full(len(take), -1, np.int32)
+    for i, m in enumerate(metas):
+        row_meta[m.rows] = i
+    return types.SimpleNamespace(**sub, row_meta=row_meta, metas=metas), rows
 
 
 def chained_metas(batch) -> list:
@@ -215,13 +281,42 @@ class BatchDecoder:
             framer.add_frame(bytes(f), i)
         return framer.build()
 
-    def stage(self, batch) -> dict:
+    def stage(self, batch, mesh=None) -> dict:
         """Upload the batch's arrays to the device once; returns the staged
         dict. Also stages the per-run index arrays (the executed frame rows
         and their checksum fields), the single-group executor's output
         width (pow2 of its rows' own bounds, `exec_width`) and the chain
-        plan (chain_plan()), so repeated runs (serving) upload nothing."""
-        dev = self.device
+        plan (chain_plan()), so repeated runs (serving) upload nothing.
+
+        With `mesh` (a parallel.mesh.LocalMesh), the batch splits into one
+        shard of whole frames per mesh device (split_batch), each staged as
+        above on its device, entropy tables replicated; run_device then
+        runs every shard and returns the batch's own frame rows. The
+        reference (zstd_tpu's stage(batch, mesh=)) pads the row and lane
+        arrays to the mesh size, splits them into equal blocks and lets
+        GSPMD gather and scatter across blocks; this splits by frame, with
+        each frame's lanes, so no scatter crosses a shard and each shard
+        runs the single-device stages as they are."""
+        if mesh is None:
+            return self._stage_on(batch, self.device)
+        from zstd_tpu_torch.parallel.mesh import LocalMesh
+
+        if not isinstance(mesh, LocalMesh):
+            raise TypeError(
+                f"stage(mesh=): a parallel.mesh.LocalMesh, not "
+                f"{type(mesh).__name__}; across torch.distributed ranks, "
+                f"decode with parallel.multihost.decode_frames_multihost")
+        shards = []
+        for dev, part in zip(mesh.devices,
+                             split_batch(batch, len(mesh.devices))):
+            if part is not None:
+                sub, rows = part
+                part = (sub, rows, self._stage_on(sub, dev))
+            shards.append(part)
+        return {"shards": shards, "frame_rows": batch.lit_base.shape[0] - 1}
+
+    def _stage_on(self, batch, dev) -> dict:
+        """stage() of the whole batch on device `dev`."""
         host = {name: np.asarray(getattr(batch, name))
                 for name in _LANE + _FRAME}
         for name in _TABLES:
@@ -272,80 +367,97 @@ class BatchDecoder:
         the reference). sync=False returns an opaque state with all device
         work enqueued but not waited on; pass it to _finalize() (or use
         decode_frames_pipelined) to overlap host framing with device
-        compute."""
+        compute. A mesh-staged dict (stage(batch, mesh=)) queues every
+        shard, each on its device, before any is read back; the result is
+        indexed by the batch's own frame rows all the same."""
         d = staged if staged is not None else self.stage(batch)
-        Bf = d["lit_base"].shape[0]
-        frame_inert = Bf - 1
-        vprint(f"run_device: {Bf - 1} frame rows, "
-               f"{d['huff_streams'].shape[0] - 1} huffman lanes, "
-               f"{d['seq_streams'].shape[0] - 1} sequence lanes")
-        chains = d["chains"]
-        chain_args = (() if chains is None
-                      else (d["chain_rows"], d["chain_row_cont"]))
-        lit_full, ll_full, ml_full, offsets, out_len, ok_dev = decode_records(
-            d, *chain_args)
-
-        out = None
-        if d["exec_rows_list"]:
-            rows = d["exec_rows"]
-            rows_l = rows.long()
-            with scope("lz77_execute"):
-                out, exec_ok = execute_lanes(ll_full, ml_full, offsets,
-                                             lit_full, out_len, rows,
-                                             d["exec_width"])
-            ok_rows = ok_dev[rows_l] & exec_ok
-            if self.verify_checksums and not pull_outputs:
-                # serving mode never reaches _postprocess's host xxh64:
-                # verify each frame's checksum field on the device
-                with scope("device_checksum"):
-                    skip = d["ck_skip"]
-                    got = xxh64_low32_lanes(out, out_len[rows_l] - skip,
-                                            skip)
-                ok_rows = ok_rows & (~d["ck_has"] | (got == d["ck_exp"]))
-            ok_dev = ok_dev.index_put((rows_l,), ok_rows)
-
-        done = None
-        if chains is not None:
-            # Stage 3b, chained frames (zstd_tpu/models/batch_decoder.py:
-            # 975-1331): one launch per width group of chain_plan runs
-            # every block group of its chains, each chain's history whole
-            # in its accumulator row (the reference pads within its window
-            # buckets, :1016-1032; these group by the chain's own width).
-            # Not carried over, since each exists for the TPU's VMEM,
-            # Mosaic or call overheads: the jumbo-group guard and its size
-            # floor (:984-1001), the `li` lockstep chooser with
-            # LOCKSTEP_BLOCK_CAP and _NOALIAS (:1033-1122),
-            # the exact-size sync (:1035-1066), the super-group packing and
-            # its rows cache (:1149-1280), and the far-stream pre-gather
-            # (_far_prep, _far_row_totals, _far_gather, :351-409, used at
-            # :1129-1148): the kernel reads far history from the
-            # accumulator itself.
-            done = []
-            with scope("lz77_window_execute"):
-                for g in chains:
-                    acc = torch.zeros((len(g["first"]), g["width"]),
-                                      dtype=torch.uint8, device=self.device)
-                    if g["base"]:
-                        acc[:, :g["base"]] = g["prefill"]
-                    written, chain_ok = execute_window(
-                        ll_full, ml_full, offsets, lit_full, out_len,
-                        d["row_lit_len"], g["rows"], acc, g["base"],
-                        g["hist0"], g["cap"])
-                    # a chain is ok when every group executed and every
-                    # row's entropy stages and resolution were
-                    chain_ok = chain_ok & ok_dev[g["rows"].long()].all(dim=1)
-                    done.append((acc, written, chain_ok, g["base"],
-                                 g["first"]))
-
         self.host_frames += sum(1 for m in batch.metas if m.fallback)
-        state = (out_len, ok_dev, out, d["exec_rows_list"], done,
-                 frame_inert)
+        if "shards" in d:
+            state = {"frame_rows": d["frame_rows"], "shards": [
+                None if part is None
+                else (part[1], self._launch(part[2], pull_outputs))
+                for part in d["shards"]]}
+        else:
+            state = self._launch(d, pull_outputs)
         if not sync:
             return state
         return self._finalize(state, pull_outputs)
 
+    def _launch(self, d: dict, pull_outputs: bool):
+        """Queue every stage of one staged dict on its device; the state
+        _finalize reads."""
+        dev = d["lit_base"].device
+        Bf = d["lit_base"].shape[0]
+        frame_inert = Bf - 1
+        vprint(f"run_device: {Bf - 1} frame rows, "
+               f"{d['huff_streams'].shape[0] - 1} huffman lanes, "
+               f"{d['seq_streams'].shape[0] - 1} sequence lanes on {dev}")
+        chains = d["chains"]
+        chain_args = (() if chains is None
+                      else (d["chain_rows"], d["chain_row_cont"]))
+        with on_device(dev):
+            lit_full, ll_full, ml_full, offsets, out_len, ok_dev = \
+                decode_records(d, *chain_args)
+
+            out = None
+            if d["exec_rows_list"]:
+                rows = d["exec_rows"]
+                rows_l = rows.long()
+                with scope("lz77_execute"):
+                    out, exec_ok = execute_lanes(ll_full, ml_full, offsets,
+                                                 lit_full, out_len, rows,
+                                                 d["exec_width"])
+                ok_rows = ok_dev[rows_l] & exec_ok
+                if self.verify_checksums and not pull_outputs:
+                    # serving mode never reaches _postprocess's host xxh64:
+                    # verify each frame's checksum field on the device
+                    with scope("device_checksum"):
+                        skip = d["ck_skip"]
+                        got = xxh64_low32_lanes(out, out_len[rows_l] - skip,
+                                                skip)
+                    ok_rows = ok_rows & (~d["ck_has"] | (got == d["ck_exp"]))
+                ok_dev = ok_dev.index_put((rows_l,), ok_rows)
+
+            done = None
+            if chains is not None:
+                # Stage 3b, chained frames (zstd_tpu/models/batch_decoder.py:
+                # 975-1331): one launch per width group of chain_plan runs
+                # every block group of its chains, each chain's history
+                # whole in its accumulator row (the reference pads within
+                # its window buckets, :1016-1032; these group by the chain's
+                # own width). Not carried over, since each exists for the
+                # TPU's VMEM, Mosaic or call overheads: the jumbo-group
+                # guard and its size floor (:984-1001), the `li` lockstep
+                # chooser with LOCKSTEP_BLOCK_CAP and _NOALIAS
+                # (:1033-1122), the exact-size sync (:1035-1066), the
+                # super-group packing and its rows cache (:1149-1280), and
+                # the far-stream pre-gather (_far_prep, _far_row_totals,
+                # _far_gather, :351-409, used at :1129-1148): the kernel
+                # reads far history from the accumulator itself.
+                done = []
+                with scope("lz77_window_execute"):
+                    for g in chains:
+                        acc = torch.zeros((len(g["first"]), g["width"]),
+                                          dtype=torch.uint8, device=dev)
+                        if g["base"]:
+                            acc[:, :g["base"]] = g["prefill"]
+                        written, chain_ok = execute_window(
+                            ll_full, ml_full, offsets, lit_full, out_len,
+                            d["row_lit_len"], g["rows"], acc, g["base"],
+                            g["hist0"], g["cap"])
+                        # a chain is ok when every group executed and every
+                        # row's entropy stages and resolution were
+                        chain_ok = chain_ok & ok_dev[g["rows"].long()].all(
+                            dim=1)
+                        done.append((acc, written, chain_ok, g["base"],
+                                     g["first"]))
+        return (out_len, ok_dev, out, d["exec_rows_list"], done,
+                frame_inert)
+
     def _finalize(self, state, pull_outputs: bool = True):
         """Second half of run_device: the single host sync + unpack."""
+        if isinstance(state, dict):
+            return self._finalize_shards(state, pull_outputs)
         out_len, ok_dev, out, rows, chains, frame_inert = state
         parts = [out_len.long(), ok_dev.long()]
         for _, written, chain_ok, _, _ in chains or ():
@@ -378,10 +490,31 @@ class BatchDecoder:
         return (outputs[:frame_inert], out_len_h[:frame_inert],
                 ok_h[:frame_inert])
 
-    def decode_frames(self, frames: list) -> list:
-        """Returns decoded bytes per frame (device path, host oracle fallback)."""
+    def _finalize_shards(self, state: dict, pull_outputs: bool):
+        """_finalize of a mesh-staged run: each shard's rows put back at
+        the batch's frame rows."""
+        n = state["frame_rows"]
+        outputs = [None] * n
+        out_len = np.zeros(n, np.int64)
+        ok = np.zeros(n, bool)
+        for part in state["shards"]:
+            if part is None:
+                continue
+            rows, shard_state = part
+            o, length, good = self._finalize(shard_state, pull_outputs)
+            out_len[rows] = length
+            ok[rows] = good
+            for r, x in zip(rows, o):
+                outputs[r] = x
+        return outputs, out_len, ok
+
+    def decode_frames(self, frames: list, mesh=None) -> list:
+        """Returns decoded bytes per frame (device path, host oracle
+        fallback); with `mesh` (a parallel.mesh.LocalMesh) the batch is
+        split over its devices (stage(batch, mesh=))."""
         batch = self.prepare(frames)
-        outputs, out_len, ok = self.run_device(batch)
+        outputs, out_len, ok = self.run_device(batch,
+                                               self.stage(batch, mesh))
         return self._postprocess(frames, batch, outputs, out_len, ok)
 
     def decode_frames_pipelined(self, frame_batches, pull_outputs=True,

@@ -8,10 +8,13 @@ checkout builds everything. `build_all()` starts one nvcc per source at
 once and waits for all of them.
 
 Every C entry point launches on the stream it is given (`launch` passes
-torch.cuda.current_stream()) and returns cudaGetLastError(); `launch`
-raises on anything but 0.
+torch.cuda.current_stream(), which is the current device's) and returns
+cudaGetLastError(); `launch` raises on anything but 0, and before the call
+when a tensor argument is not on the current device. `device_launches`
+counts the calls by kernel and device index.
 """
 
+import collections
 import ctypes
 import glob
 import os
@@ -61,6 +64,8 @@ SIGNATURES = {
 }
 
 _fns = {}
+# (kernel name, CUDA device index) -> calls made through launch()
+device_launches = collections.Counter()
 
 
 class KernelError(RuntimeError):
@@ -148,11 +153,19 @@ def symbol(name: str, sym: str, argtypes: list):
 
 def launch(name: str, *args) -> None:
     """Call kernel `name`'s C entry point on the current CUDA stream;
-    tensors pass as their data pointers. Raises on a failed launch."""
+    tensors pass as their data pointers. Raises on a tensor that is not on
+    the current device (run under torch.cuda.device of the tensors'), and
+    on a failed launch."""
+    current = torch.cuda.current_device()
+    for a in args:
+        if isinstance(a, torch.Tensor) and a.device.index != current:
+            raise KernelError(f"{name}: a tensor on {a.device} while the "
+                              f"current device is cuda:{current}")
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     err = entry(name)(*ptrs, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise KernelError(f"{name} kernel launch failed: CUDA error {err}")
+    device_launches[name, current] += 1
 
 
 def require(t, name: str, dtype, ndim: int, device) -> None:

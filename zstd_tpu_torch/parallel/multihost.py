@@ -36,10 +36,20 @@ def initialize_distributed(coordinator: str | None = None,
                            backend: str = "gloo") -> None:
     """Join the default process group (a no-op for a single process).
     `coordinator` is host:port of rank 0's TCP store, or an init URL such
-    as file:///path/to/store."""
-    if num_processes in (None, 1):
+    as file:///path/to/store; None reads MASTER_ADDR and MASTER_PORT from
+    the environment (env://, as torchrun sets them). num_processes and
+    process_id default to WORLD_SIZE (unset means one process) and RANK."""
+    if num_processes is None:
+        num_processes = int(os.environ.get("WORLD_SIZE", 1))
+    if num_processes == 1:
         return
-    url = coordinator if "://" in coordinator else f"tcp://{coordinator}"
+    if process_id is None:
+        # -1: torch reads RANK itself and names it when it is missing
+        process_id = int(os.environ.get("RANK", -1))
+    if coordinator is None:
+        url = "env://"
+    else:
+        url = coordinator if "://" in coordinator else f"tcp://{coordinator}"
     dist.init_process_group(backend, init_method=url,
                             world_size=num_processes, rank=process_id)
 
