@@ -90,6 +90,20 @@ phase raises on failure, so any failure exits non-zero:
      truncated frames) lane for lane, the window kernel on each shard
      holding chains; sharded_decode over the mesh on phase 15's batch
      equal to the unsharded fused step
+ 19. libzstd's frames (zstd_tpu_torch/testdata/libzstd, committed; their
+     payloads made again from seeds), run after phase 18: bench.py's 16
+     level-3 frames 64 times (1024 x 128 KiB), the level and edge frames,
+     a stream with a skippable frame (decode_all_device), one level-19
+     frame through the CLI's decompress --gpu, the 4 MiB chained frame
+     (window 2 MiB) and the far frame (matches past 8 MiB): each frame's
+     own device row ok and exact, pulled and in serving mode (no frame
+     retried on the host), host_frames 0, the path's kernels launched,
+     the decode kernels and the window kernel bit-equal to their plain
+     versions, main serving GB/s beside phase 5's; then 512 targeted
+     mutants (testdata/anatomy.py) beside valid frames: no CUDA error,
+     every result the host oracle's decode_frame's, every valid frame ok,
+     the corrupted lanes reaching the Huffman and sequence kernels counted
+     (at least 128 each); the main batch exact again afterwards
 
 The line before the last is the `kernels` JSON object; the last line is
 {"ok": true, "device": {...}}.
@@ -109,33 +123,11 @@ H100_OPS_PER_S = 67e12
 
 
 def make_corpus(total_mb: int = 64, frame_kb: int = 128, seed: int = 0):
-    """Synthetic enwik-like mix: text-ish, structured, and binary runs."""
-    rng = np.random.RandomState(seed)
-    words = [b"the", b"of", b"and", b"compression", b"entropy", b"zstandard",
-             b"frame", b"block", b"sequence", b"literal", b"window", b"match",
-             b"offset", b"huffman", b"table", b"state", b"stream", b"decode"]
-    chunks = []
-    size = 0
-    target = total_mb << 20
-    while size < target:
-        kind = rng.randint(3)
-        if kind == 0:
-            n = rng.randint(2000, 8000)
-            idx = rng.randint(0, len(words), size=n)
-            part = b" ".join(words[i] for i in idx)
-        elif kind == 1:
-            n = rng.randint(1000, 4000)
-            part = b"".join(b"%d,%d,item-%d\n" % (j, (j * 37) % 1001, j % 64)
-                            for j in range(n))
-        else:
-            base = rng.randint(0, 256, size=rng.randint(256, 2048),
-                               dtype=np.uint8).tobytes()
-            part = base * rng.randint(4, 32)
-        chunks.append(part)
-        size += len(part)
-    blob = b"".join(chunks)[:target]
-    fk = frame_kb << 10
-    return [blob[i:i + fk] for i in range(0, len(blob), fk)]
+    """bench.py's corpus (zstd_tpu_torch/testdata/payloads.py's copy):
+    text-ish, structured and binary runs, in frames of frame_kb KiB."""
+    from zstd_tpu_torch.testdata.payloads import make_corpus as corpus
+
+    return corpus(total_mb, frame_kb, seed)
 
 
 def say(*args):
@@ -217,28 +209,35 @@ def huffman_case(d):
     return setup, call, huffman.huffman_lanes, huffman.huffman_lanes_plain
 
 
-def kernel_cases(d):
-    """{name: (setup() -> buffers, call(fn, buffers) -> outputs, kernel fn,
-    plain fn)} on the staged batch `d`, plus the stage outputs. The
-    resolve, execute and checksum inputs are what the stages before them
-    produce; the executor runs at the staged width of its own rows."""
+def sequence_case(d):
+    """(setup, call, kernel, plain) of the sequence kernel on staged batch
+    d."""
     import torch
 
-    from zstd_tpu_torch.models.batch_decoder import _resolve
-    from zstd_tpu_torch.ops import execute, sequence, xxhash64
+    from zstd_tpu_torch.ops import sequence
 
-    dev = d["lit_base"].device
-
-    def setup_seq():
+    def setup():
         arrs = [d[k].clone() for k in ("ll_base", "ml_base", "of_base")]
         return arrs + [torch.ones(arrs[0].shape[0], dtype=torch.bool,
-                                  device=dev)]
+                                  device=arrs[0].device)]
 
-    def call_seq(fn, bufs):
+    def call(fn, bufs):
         fn(*_seq_args(d), *bufs)
         return bufs
 
-    lit, ll, ml, of = stage_outputs(d)
+    return setup, call, sequence.sequence_lanes, sequence.sequence_lanes_plain
+
+
+def kernel_cases(d, stage=None):
+    """{name: (setup() -> buffers, call(fn, buffers) -> outputs, kernel fn,
+    plain fn)} on the staged batch `d`, plus the stage outputs. The
+    resolve, execute and checksum inputs are what the stages before them
+    produce (`stage`, the entropy stages' (lit, ll, ml, of), when given);
+    the executor runs at the staged width of its own rows."""
+    from zstd_tpu_torch.models.batch_decoder import _resolve
+    from zstd_tpu_torch.ops import execute, xxhash64
+
+    lit, ll, ml, of = stage_outputs(d) if stage is None else stage
     offsets, out_len, _ = _resolve(ll, ml, of, d["is_real"], d["init_hist"])
     rows = d["exec_rows"]
     out_width = d["exec_width"]
@@ -255,8 +254,7 @@ def kernel_cases(d):
 
     cases = {
         "huffman": huffman_case(d),
-        "sequence": (setup_seq, call_seq, sequence.sequence_lanes,
-                     sequence.sequence_lanes_plain),
+        "sequence": sequence_case(d),
         "resolve": resolve_case(d, ll, ml, of),
         "execute": (list, call_exec, execute.execute_lanes,
                     execute.execute_lanes_plain),
@@ -1908,6 +1906,439 @@ def phase_mesh(frames, payloads, far_frame, far_body, card, serving_gbps):
     torch.cuda.empty_cache()
 
 
+# --- libzstd frames on the card ----------------------------------------------
+
+MAIN_TILE = 64         # the 16 main frames 64 times: 1024 x 128 KiB
+FUZZ_MUTANTS = 512
+FUZZ_BATCH = 64        # mutants a batch, each beside a valid frame
+FUZZ_SEED = 19
+DECODE_KERNELS = ("huffman", "sequence", "resolve", "execute")
+
+
+def libzstd_fixture() -> dict:
+    """The committed libzstd frames (zstd_tpu_torch/testdata/libzstd) by
+    group, each entry with its payload, made again from its recipe and held
+    to its manifest digest, under "data"; the stream under "stream"."""
+    from zstd_tpu_torch.testdata import (libzstd_payload, load_libzstd_fixture,
+                                         load_libzstd_stream, matches_digest)
+    from zstd_tpu_torch.testdata.payloads import payload
+
+    cache, groups = {}, {}
+    for e in load_libzstd_fixture():
+        p = libzstd_payload(e, cache)
+        need(matches_digest(p, e["digest"]),
+             f"libzstd fixture: the payload of {e['file']} differs from its "
+             f"manifest digest")
+        groups.setdefault(e["group"], []).append({**e, "data": p})
+    s = load_libzstd_stream()
+    s["data"] = [payload(spec, cache) for spec in s["payloads"]]
+    need(matches_digest(b"".join(s["data"]), s["digest"]),
+         "libzstd fixture: the stream's payloads differ from its digest")
+    groups["stream"] = s
+    return groups
+
+
+def _row_good(m, p, outputs, out_len, ok, pulled: bool) -> bool:
+    """A frame's own device row: parsed for the device, ok, out_len its
+    payload's length and, pulled, its payload's bytes."""
+    if not m.ok or m.fallback or not m.rows:
+        return False
+    r = m.rows[0]
+    good = bool(ok[r]) and int(out_len[r]) == m.dict_skip + len(p)
+    if good and pulled:
+        good = outputs[r][m.dict_skip:m.dict_skip + len(p)].tobytes() == p
+    return good
+
+
+def device_rows(label, dec, batch, staged, payloads, pull: bool = True):
+    """run_device's rows of a staged batch held to the payloads. Read from
+    the rows, a frame the device rejected fails here, where decode_frames
+    would have decoded it again on the host."""
+    outputs, out_len, ok = dec.run_device(batch, staged, pull_outputs=pull)
+    bad = [i for i, (m, p) in enumerate(zip(batch.metas, payloads))
+           if not _row_good(m, p, outputs, out_len, ok, pull)]
+    need(not bad, f"{label}: {len(bad)} frames not ok or wrong in their "
+                  f"device rows ({'pulled' if pull else 'serving'}), first "
+                  f"{bad[:8]}")
+
+
+def _rows_of(t, n: int, tile: int):
+    """t's rows for frames held `tile` times over, as a batch of the n
+    frames once holds them: its first n rows and, where t has one more
+    (the inert row), that row."""
+    import torch
+
+    if tile == 1:
+        return t
+    return torch.cat([t[:n], t[n * tile:]])
+
+
+HOST_PLAIN = ("huffman", "sequence")
+
+
+def host_plain(frames: list) -> dict:
+    """The plain versions of the two step loops (HOST_PLAIN) on a CPU
+    batch of `frames`: {name: [its outputs as numpy arrays]} and "rows",
+    the batch's frame rows. A job for a spawned worker: on the card a
+    step costs a few launches, so there the plain sequence stage of a
+    128 KiB block takes tens of seconds; on the host a few, beside the
+    phase."""
+    import torch
+
+    from zstd_tpu_torch.models.batch_decoder import BatchDecoder
+
+    torch.set_num_threads(2)
+    dec = BatchDecoder(device="cpu")
+    d = dec.stage(dec.prepare(frames))
+    out = {"rows": d["lit_base"].shape[0] - 1}
+    for name, (setup, call, _, plain) in (("huffman", huffman_case(d)),
+                                          ("sequence", sequence_case(d))):
+        out[name] = [t.numpy() for t in call(plain, setup())]
+    return out
+
+
+def decode_kernel_runs(d) -> dict:
+    """Each decode kernel once on the staged batch d, each given the
+    outputs of the kernels before it: {name: (its outputs, its case)};
+    an output's last tensor is its ok flags, one a frame row (execute:
+    one an executed row)."""
+    cases, _ = kernel_cases(d, stage_outputs(d))
+    runs = {}
+    for name in DECODE_KERNELS:
+        setup, call, kern, _ = cases[name]
+        runs[name] = (call(kern, setup()), cases[name])
+    return runs
+
+
+def kernels_vs_plain(label, runs: dict, host: dict, tile: int = 1):
+    """decode_kernel_runs' outputs on the card against the plain versions,
+    bit-equal, ok flags included, or raise. The plain Huffman and sequence
+    stages are `host` (host_plain of the batch's frames, which the batch
+    holds `tile` times over); resolve and execute run their plain versions
+    on the card, on the same inputs as their kernels."""
+    import torch
+
+    n = host["rows"]
+    for name, (got, (setup, call, _, plain)) in runs.items():
+        if name in HOST_PLAIN:
+            exp = [torch.from_numpy(a) for a in host[name]]
+            err = max_abs_err([_rows_of(a, n, tile).cpu() for a in got], exp)
+            if tile > 1:
+                err = max(err, max_abs_err(
+                    [a[:n * tile].cpu() for a in got],
+                    [b[:n].repeat(tile, *[1] * (b.dim() - 1)) for b in exp]))
+        else:
+            exp = call(plain, setup())
+            torch.cuda.synchronize()
+            err = max_abs_err(got, exp)
+        need(err == 0, f"{label}: kernel {name} differs from its plain "
+                       f"version (max abs err {err})")
+
+
+def _oracle_frame(frame):
+    """oracle.decode_frame's bytes, None where it raises ZstdError."""
+    from zstd_tpu_torch.common.errors import ZstdError
+    from zstd_tpu_torch.oracle import decode_frame
+
+    try:
+        return decode_frame(frame)
+    except ZstdError:
+        return None
+
+
+def _libzstd_batch(label, frames, payloads, kernels=DECODE_KERNELS):
+    """A batch of libzstd frames on the card: decode_frames equal to the
+    payloads, the device rows pulled and in serving mode, host_frames 0,
+    `kernels` launched in the serving run. Returns (decoder, batch,
+    staged, the serving run's launches)."""
+    from zstd_tpu_torch.models.batch_decoder import BatchDecoder
+
+    dec = BatchDecoder()
+    counters = _counters()
+    need(dec.decode_frames(frames) == payloads,
+         f"{label}: decode_frames' bytes differ from the payloads")
+    batch = dec.prepare(frames)
+    staged = dec.stage(batch)
+    device_rows(label, dec, batch, staged, payloads)
+    for fn in counters.values():
+        fn.launches = 0
+    device_rows(label, dec, batch, staged, payloads, pull=False)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    need(dec.host_frames == 0, f"{label}: {dec.host_frames} host frames")
+    for k in kernels:
+        need(launches[k] > 0, f"{label}: serving never launched kernel {k}")
+    return dec, batch, staged, launches
+
+
+def _cli_start(work, entry):
+    """Start `python -m zstd_tpu_torch.cli decompress --gpu` on one fixture
+    frame written under `work`; returns (process, its output path, start
+    time). It runs beside the rest of the phase."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(work, exist_ok=True)
+    src = os.path.join(work, entry["file"])
+    with open(src, "wb") as f:
+        f.write(entry["frame"])
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "zstd_tpu_torch.cli", "decompress", src,
+         src + ".out", "--gpu"], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": root})
+    return proc, src + ".out", time.perf_counter()
+
+
+def _cli_finish(proc, out_path, t0, want: bytes) -> float:
+    """Wait for _cli_start's process; its output must be `want`."""
+    try:
+        _, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    t = time.perf_counter() - t0
+    need(proc.returncode == 0, f"libzstd cli: exited {proc.returncode}: "
+                               f"{err}")
+    with open(out_path, "rb") as f:
+        need(f.read() == want, "libzstd cli: bytes differ")
+    return t
+
+
+def _oracle_frames(frames) -> list:
+    """_oracle_frame of each frame, in threads (the native decode loops
+    release the interpreter lock)."""
+    import concurrent.futures as cf
+
+    with cf.ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        return list(pool.map(_oracle_frame, frames))
+
+
+def phase_libzstd(card, serving_gbps):
+    """19. libzstd frames on the card (zstd_tpu_torch/testdata/libzstd,
+    written by scripts/make_torch_libzstd_fixture.py; payloads made again
+    from their recipes and held to the manifest's digests). Every device
+    check reads run_device's rows (device_rows), not decode_frames alone,
+    which decodes a frame the device rejected again on the host.
+    (a) main: the 16 level-3 frames with checksums 64 times, 1024 x 128
+    KiB: decode_frames exact; the device rows pulled (each ok, its out_len
+    and bytes right) and in serving mode (each ok, checksums verified on
+    the device); host_frames 0; the five kernels of the path launched in
+    the serving run; serving GB/s beside phase 5's FASTEST number.
+    (b) the level and edge frames as one batch, the same checks; the
+    stream with a skippable frame through decode_all_device and its frames'
+    rows; one level-19 frame through `python -m zstd_tpu_torch.cli
+    decompress --gpu`, a subprocess started at the phase's start.
+    (c) the chained (4 MiB, window 2 MiB) and far (window past 8 MiB)
+    frames, each alone: the same checks, the window kernel launched and
+    bit-equal to its plain version, the far frame's matches past 8 MiB.
+    (d) targeted fuzz: FUZZ_MUTANTS mutants of the checksum-less frames
+    (testdata/anatomy.py::targeted_mutants, random.Random(FUZZ_SEED)), in
+    batches of FUZZ_BATCH, each mutant beside a valid frame: no CUDA error;
+    every result equal to oracle.decode_frame's (None where it raises);
+    every valid frame's device row ok and exact; the four decode kernels
+    bit-equal to their plain versions on the first batch; the corrupted
+    lanes that reach the Huffman and the sequence kernel (each at least
+    128) and the mutants each kernel flagged.
+    (e) the main batch once more, exact: the context survived; its four
+    decode kernels bit-equal to their plain versions (kernels_vs_plain)."""
+    import concurrent.futures as cf
+    import multiprocessing
+    import random
+
+    from zstd_tpu_torch.testdata.anatomy import targeted_mutants
+
+    t_phase = time.perf_counter()
+    fx = libzstd_fixture()
+    t_fixture = time.perf_counter() - t_phase
+    e19 = next(e for e in fx["levels"] if e["level"] == 19)
+    bases = [e for g in ("levels", "edge") for e in fx[g]
+             if not e["checksum"]]
+    valid = fx["main"] + fx["levels"] + fx["edge"]
+    mutants = targeted_mutants([e["frame"] for e in bases],
+                               random.Random(FUZZ_SEED), FUZZ_MUTANTS)
+    batches = []
+    for b in range(0, len(mutants), FUZZ_BATCH):
+        chunk = mutants[b:b + FUZZ_BATCH]
+        beside = [valid[(b + j) % len(valid)] for j in range(len(chunk))]
+        batches.append((chunk, beside, [x for mut, v in zip(chunk, beside)
+                                        for x in (mut[3], v["frame"])]))
+    # beside the phase: the CLI in a subprocess and the plain Huffman and
+    # sequence stages of the two batches they are held to in spawned
+    # workers, the pool closed (its workers stopped) when the phase ends
+    cli = _cli_start(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "build", "chip_smoke_cli"), e19)
+    with cf.ProcessPoolExecutor(
+            max_workers=2,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        plain = {"main": pool.submit(host_plain,
+                                     [e["frame"] for e in fx["main"]]),
+                 "fuzz": pool.submit(host_plain, batches[0][2])}
+        _phase_libzstd(card, serving_gbps, fx, batches, plain)
+    t_cli = _cli_finish(*cli, e19["data"])
+    say(f"libzstd: cli decompress --gpu of {e19['file']} exact ({t_cli:.1f} "
+        f"s, beside the phase); fixture made in {t_fixture:.1f} s; phase 19 "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def _phase_libzstd(card, serving_gbps, fx, batches, plain):
+    """phase_libzstd's checks (a)-(e) on the fixture `fx`, the fuzz
+    `batches` ((mutants, valid frames beside them, the batch's frames))
+    and the futures of host_plain of the main frames and the first fuzz
+    batch."""
+    import torch
+
+    from zstd_tpu_torch.models import framer
+    from zstd_tpu_torch.models.batch_decoder import (BatchDecoder,
+                                                     _resolve_chained)
+    from zstd_tpu_torch.models.splitter import decode_all_device, split_frames
+    from zstd_tpu_torch.testdata.anatomy import REGION_KERNEL
+
+    # (a) main
+    t0 = time.perf_counter()
+    main = fx["main"]
+    frames = [e["frame"] for e in main] * MAIN_TILE
+    payloads = [e["data"] for e in main] * MAIN_TILE
+    n_bytes = sum(map(len, payloads))
+    main_dec, main_batch, main_staged, launches = _libzstd_batch(
+        "libzstd main", frames, payloads, SINGLE_GROUP)
+    t_serve, _ = phase_serving(main_dec, main_batch, main_staged, n_bytes,
+                               label="libzstd main serving")
+    say(f"libzstd main: {len(frames)} frames ({len(main)} level-3 frames "
+        f"with checksums x {MAIN_TILE}), {n_bytes} bytes, ratio "
+        f"{sum(map(len, frames)) / n_bytes:.4f}; decode_frames exact, every "
+        f"device row ok and exact, pulled and serving, host_frames 0; "
+        f"serving launches {launches}; {time.perf_counter() - t0:.1f} s")
+    span = _device_span(main_dec, main_batch, main_staged)
+    say(f"libzstd main serving on {card}: {n_bytes / t_serve / 1e9:.4f} "
+        f"GB/s (mean of 5), device span a run {span:.3f} ms (CUDA events, "
+        f"first launch to last, mean of 5); FASTEST frames, phase 5: "
+        f"{serving_gbps:.4f} GB/s (a record, not a claim: 16 distinct "
+        f"frames, tiled)")
+
+    # (b) levels and edge, the stream, the CLI
+    t0 = time.perf_counter()
+    other = fx["levels"] + fx["edge"]
+    _libzstd_batch("libzstd levels and edge", [e["frame"] for e in other],
+                   [e["data"] for e in other])
+    s = fx["stream"]
+    parts = split_frames(s["stream"])
+    _libzstd_batch("libzstd stream frames", parts, s["data"],
+                   DECODE_KERNELS[1:])
+    dec = BatchDecoder()
+    need(decode_all_device(s["stream"], decoder=dec) == b"".join(s["data"])
+         and dec.host_frames == 0, "libzstd stream: decode_all_device differs")
+    say(f"libzstd levels and edge: {len(other)} frames (levels 19, 1, -5; "
+        f"{', '.join(e['file'] for e in fx['edge'])}) exact, every device "
+        f"row ok, host_frames 0; the stream ({len(parts)} frames around a "
+        f"skippable one) exact through decode_all_device and its rows; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (c) chained and far
+    for label in ("chained", "far"):
+        t0 = time.perf_counter()
+        e = fx[label][0]
+        dec, batch, staged, launches = _libzstd_batch(
+            f"libzstd {label}", [e["frame"]], [e["data"]],
+            ("huffman", "sequence", "resolve", "execute_window"))
+        m = batch.metas[0]
+        need(len(m.rows) > 1, f"libzstd {label}: not chained")
+        if label == "chained":
+            need(m.window < len(e["data"]),
+                 f"libzstd chained: window {m.window} not below the frame")
+        _window_run(f"libzstd {label}", staged)
+        _, ll, ml, of = stage_outputs(staged)
+        offsets, _, _ = _resolve_chained(ll, ml, of, staged["is_real"],
+                                         staged["init_hist"],
+                                         staged["chain_rows"],
+                                         staged["chain_row_cont"])
+        n_far = int(((ml > 0) & (offsets > framer.STREAM_WINDOW_CAP)).sum())
+        if label == "far":
+            need(m.window > framer.STREAM_WINDOW_CAP and n_far > 0,
+                 f"libzstd far: window {m.window}, {n_far} matches past "
+                 f"{framer.STREAM_WINDOW_CAP} bytes")
+        say(f"libzstd {label}: {len(e['data'])} bytes, window {m.window}, "
+            f"{len(m.rows)} block groups, exact, device row ok pulled and "
+            f"serving, host_frames 0, launches {launches}; {n_far} matches "
+            f"past {framer.STREAM_WINDOW_CAP} bytes; "
+            f"{time.perf_counter() - t0:.1f} s")
+        del dec, batch, staged
+
+    # (d) targeted fuzz
+    t0 = time.perf_counter()
+    lanes = {"huffman": 0, "sequence": 0}
+    flagged = dict.fromkeys(DECODE_KERNELS, 0)
+    on_device = decoded = 0
+    t_plain = 0.0
+    for i, (chunk, beside, frames) in enumerate(batches):
+        dec = BatchDecoder()
+        batch = dec.prepare(frames)
+        staged = dec.stage(batch)
+        outputs, out_len, ok = dec.run_device(batch, staged)
+        res = dec._postprocess(frames, batch, outputs, out_len, ok)
+        torch.cuda.synchronize()
+        label = f"libzstd fuzz batch {i + 1}"
+        for j, v in enumerate(beside):
+            need(_row_good(batch.metas[2 * j + 1], v["data"], outputs,
+                           out_len, ok, True) and res[2 * j + 1] == v["data"],
+                 f"{label}: valid frame {v['file']} beside mutant {j} is "
+                 f"not ok or wrong in its device row")
+        for j, want in enumerate(_oracle_frames([m[3] for m in chunk])):
+            _, how, region, _ = chunk[j]
+            need(res[2 * j] == want,
+                 f"{label}: mutant {j} ({how} in {region.kind}) gives "
+                 f"{'None' if res[2 * j] is None else 'other bytes'}, the "
+                 f"oracle {'None' if want is None else 'bytes'}")
+            decoded += want is not None
+        runs = decode_kernel_runs(staged)
+        flags = {k: out[-1].cpu().numpy() for k, (out, _) in runs.items()}
+        if i == 0:
+            t1 = time.perf_counter()
+            kernels_vs_plain(label, runs, plain["fuzz"].result())
+            t_plain = time.perf_counter() - t1
+        exec_at = {r: i for i, r in enumerate(staged["exec_rows_list"])}
+        for j, (_, _, region, _) in enumerate(chunk):
+            m = batch.metas[2 * j]
+            if not m.ok or m.fallback or not m.rows:
+                continue
+            on_device += 1
+            lanes[REGION_KERNEL[region.kind]] += region.lanes
+            for k in DECODE_KERNELS:
+                rows = ([exec_at[r] for r in m.rows if r in exec_at]
+                        if k == "execute" else m.rows)
+                flagged[k] += not all(flags[k][r] for r in rows)
+        del dec, batch, staged, outputs, res, runs
+    mutants = [m for chunk, _, _ in batches for m in chunk]
+    kinds = {}
+    for _, how, region, _ in mutants:
+        key = f"{how}/{region.kind}"
+        kinds[key] = kinds.get(key, 0) + 1
+    say(f"libzstd fuzz: {len(mutants)} mutants of the checksum-less frames, "
+        f"{FUZZ_BATCH} a batch beside as many valid frames, "
+        f"{time.perf_counter() - t0:.1f} s (the comparison with the plain "
+        f"versions on batch 1 {t_plain:.1f} s); no CUDA error; every result equal to "
+        f"oracle.decode_frame's ({decoded} decoded, {len(mutants) - decoded} "
+        f"None); every valid frame ok and exact; the four decode kernels "
+        f"bit-equal to their plain versions on batch 1; kinds "
+        f"{json.dumps(kinds)}")
+    say(f"libzstd fuzz: {on_device} mutants reached the device; corrupted "
+        f"lanes reaching huffman {lanes['huffman']}, sequence "
+        f"{lanes['sequence']}; mutants flagged by {json.dumps(flagged)}")
+    for k, n in lanes.items():
+        need(n >= 128, f"libzstd fuzz: only {n} corrupted lanes reached the "
+                       f"{k} kernel")
+
+    # (e) the main batch again, and its kernels against their plain
+    # versions (last: their host half is the longest job beside the phase)
+    device_rows("libzstd main after the fuzz", main_dec, main_batch,
+                main_staged, payloads)
+    t0 = time.perf_counter()
+    kernels_vs_plain("libzstd main", decode_kernel_runs(main_staged),
+                     plain["main"].result(), tile=MAIN_TILE)
+    say(f"libzstd: the main batch exact again after the fuzz; its huffman, "
+        f"sequence, resolve and execute kernels bit-equal to their plain "
+        f"versions ({time.perf_counter() - t0:.1f} s, the wait for the host "
+        f"half included)")
+
+
 def main() -> int:
     import torch
 
@@ -1947,6 +2378,7 @@ def main() -> int:
     del dec, batch, staged, far
     phase_mesh(main_frames, main_payloads, far_frame, far_body, card,
                serving_gbps)
+    phase_libzstd(card, serving_gbps)
     payloads, host_frames, host_ratio = phase_encode_host()
     launches, args = phase_encode_device(payloads, host_ratio)
     phase_cli()

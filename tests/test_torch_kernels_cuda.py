@@ -32,6 +32,14 @@ A batch staged over a local mesh of two shards on one card (and over two
 cards where there are two) equals the single-device decode bit for bit,
 main-style and mixed (chained, dictionary and truncated frames), each
 shard's kernels launched on its own device.
+The committed libzstd frames (zstd_tpu_torch/testdata/libzstd: bench.py's
+level-3 frames, levels 19, 1 and -5, a 4 MiB frame with a 2 MiB window, a
+frame reaching past 8 MiB, edge frames) decode exact with each frame's own
+device row ok (no host retry); the four decode kernels equal their plain
+versions on them and on 128 targeted mutants (testdata/anatomy.py), whose
+results equal the host oracle's decode_frame beside valid frames that stay
+ok; the window kernel equals its plain version on the chained and far
+frames.
 The Huffman kernel runs the lanes of the numpy model of its segmented walk
 (tests/test_torch_huffman_schedule.py: malformed lanes, tables that break
 its property, short and one-symbol lanes), with its serial lanes and
@@ -45,11 +53,14 @@ with:
         tests/test_torch_kernels_cuda.py
 """
 
+import random
+
 import numpy as np
 import pytest
 import torch
 
 from zstd_tpu_torch.common.config import CodecConfig, CompressionLevel
+from zstd_tpu_torch.common.errors import ZstdError
 from zstd_tpu_torch.encoding.frame_enc import compress_to_vec
 from zstd_tpu_torch.encoding.device_matcher import DeviceMatcher
 from zstd_tpu_torch.models.batch_decoder import BatchDecoder, chain_plan
@@ -73,7 +84,10 @@ from zstd_tpu_torch.ops.sequence import (resolve_frames, resolve_frames_plain,
 from zstd_tpu_torch.ops.xxhash64 import (xxh64_low32_lanes,
                                          xxh64_low32_lanes_plain)
 from zstd_tpu_torch.parallel.mesh import make_mesh
-from zstd_tpu_torch.testdata import load_dict_fixture, matches_digest
+from zstd_tpu_torch.oracle import decode_frame
+from zstd_tpu_torch.testdata import (libzstd_payload, load_dict_fixture,
+                                     load_libzstd_fixture, matches_digest)
+from zstd_tpu_torch.testdata.anatomy import targeted_mutants
 
 pytestmark = pytest.mark.cuda
 
@@ -1379,3 +1393,165 @@ def test_local_mesh_equals_single_device(cuda, kind, cards):
         row = (h[0][h[1], h[2]:h[2] + int(out_len[r])] if len(h) == 3
                else h[0][h[1], m.dict_skip:int(out_len[r])])
         assert bool(ok[r]) and row.cpu().numpy().tobytes() == got[i]
+
+
+# --- libzstd's frames (zstd_tpu_torch/testdata/libzstd) ----------------------
+
+@pytest.fixture(scope="module")
+def libzstd(cuda):
+    """The committed libzstd frames by group, each with its payload."""
+    cache, out = {}, {}
+    for e in load_libzstd_fixture():
+        out.setdefault(e["group"], []).append(
+            {**e, "data": libzstd_payload(e, cache)})
+    return out
+
+
+def _rows_exact(dec, batch, staged, payloads, pull: bool):
+    """Each frame's own row of run_device ok, its out_len and (pulled) its
+    bytes its payload's: read from the rows, so a frame the device rejected
+    fails here where decode_frames would retry it on the host."""
+    outputs, out_len, ok = dec.run_device(batch, staged, pull_outputs=pull)
+    for i, (m, p) in enumerate(zip(batch.metas, payloads)):
+        assert m.ok and not m.fallback and m.rows, (i, m.error)
+        r = m.rows[0]
+        assert bool(ok[r]) and int(out_len[r]) == m.dict_skip + len(p), i
+        if pull:
+            assert outputs[r][m.dict_skip:m.dict_skip + len(p)].tobytes() \
+                == p, i
+
+
+@pytest.mark.parametrize("group", ["main", "levels", "chained", "far",
+                                   "edge"])
+def test_libzstd_frames_on_cuda(libzstd, group):
+    es = libzstd[group]
+    frames, payloads = [e["frame"] for e in es], [e["data"] for e in es]
+    dec = BatchDecoder()
+    batch = dec.prepare(frames)
+    staged = dec.stage(batch)
+    _rows_exact(dec, batch, staged, payloads, pull=True)
+    _rows_exact(dec, batch, staged, payloads, pull=False)
+    assert dec.decode_frames(frames) == payloads
+    assert dec.host_frames == 0
+    assert all(matches_digest(p, e["digest"]) for p, e in zip(payloads, es))
+
+
+def _libzstd_mutant_batch(libzstd):
+    """128 targeted mutants of the checksum-less fixture frames, each
+    beside a valid fixture frame: (frames, mutants, valid entries)."""
+    bases = [e["frame"] for g in ("levels", "edge") for e in libzstd[g]
+             if not e["checksum"]]
+    valid = libzstd["main"] + libzstd["levels"] + libzstd["edge"]
+    mutants = targeted_mutants(bases, random.Random(13), 128)
+    beside = [valid[j % len(valid)] for j in range(len(mutants))]
+    frames = [x for m, v in zip(mutants, beside) for x in (m[3], v["frame"])]
+    return frames, mutants, beside
+
+
+def _decode_kernels_vs_plain(d):
+    """The four decode kernels on staged batch d against their plain
+    versions, each kernel given the kernels' outputs before it: the plain
+    Huffman and sequence stages on a CPU copy of their inputs (a step
+    loop costs a few launches a step on the card), resolve and execute on
+    the card. Bit-equal, ok flags included. Returns how many frame rows
+    each kernel flagged."""
+    dev = d["lit_base"].device
+    Bf = d["lit_base"].shape[0]
+    cpu = [t.cpu() for t in _huff_args(d)]
+    lit, lit_p = d["lit_base"].clone(), d["lit_base"].cpu().clone()
+    ok_h, ok_hp = torch.ones(Bf, dtype=torch.bool, device=dev), \
+        torch.ones(Bf, dtype=torch.bool)
+    huffman_lanes(*_huff_args(d), lit, ok_h)
+    huffman_lanes_plain(*cpu, lit_p, ok_hp)
+    assert torch.equal(lit.cpu(), lit_p) and torch.equal(ok_h.cpu(), ok_hp)
+    recs = [d[k].clone() for k in ("ll_base", "ml_base", "of_base")]
+    recs_p = [t.cpu() for t in recs]
+    ok_s, ok_sp = torch.ones_like(ok_h), torch.ones_like(ok_hp)
+    sequence_lanes(*_seq_args(d), *recs, ok_s)
+    sequence_lanes_plain(*[t.cpu() for t in _seq_args(d)], *recs_p, ok_sp)
+    for a, b in zip(recs + [ok_s], recs_p + [ok_sp]):
+        assert torch.equal(a.cpu(), b)
+    ll, ml, of = recs
+    chain = ([] if d["chains"] is None
+             else [d["chain_rows"], d["chain_row_cont"]])
+    args = [ll, ml, of, d["is_real"], d["init_hist"], *chain]
+    got, exp = resolve_frames(*args), resolve_frames_plain(*args)
+    for a, b in zip(got, exp):
+        assert torch.equal(a, b)
+    offsets, out_len, ok_r = got
+    flagged = {"huffman": int((~ok_h).sum()), "sequence": int((~ok_s).sum()),
+               "resolve": int((~ok_r).sum())}
+    if d["exec_rows_list"]:
+        ex = [ll, ml, offsets, lit, out_len, d["exec_rows"], d["exec_width"]]
+        got, exp = execute_lanes(*ex), execute_lanes_plain(*ex)
+        assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
+        flagged["execute"] = int((~got[1]).sum())
+    return flagged
+
+
+@pytest.mark.parametrize("batch_of", ["fixture", "mutants"])
+def test_libzstd_decode_kernels_match_plain(libzstd, batch_of):
+    if batch_of == "fixture":
+        frames = [e["frame"] for g in ("main", "levels", "edge")
+                  for e in libzstd[g]]
+    else:
+        frames = _libzstd_mutant_batch(libzstd)[0]
+    dec = BatchDecoder()
+    flagged = _decode_kernels_vs_plain(dec.stage(dec.prepare(frames)))
+    if batch_of == "fixture":
+        assert not any(flagged.values()), flagged
+    else:
+        assert flagged["huffman"] and flagged["sequence"], flagged
+
+
+@pytest.mark.parametrize("group", ["chained", "far"])
+def test_libzstd_window_kernel_matches_plain(libzstd, group):
+    dec = BatchDecoder()
+    d = dec.stage(dec.prepare([libzstd[group][0]["frame"]]))
+    lit, ll, ml, of = (d[k].clone() for k in ("lit_base", "ll_base",
+                                              "ml_base", "of_base"))
+    ok = torch.ones(lit.shape[0], dtype=torch.bool, device=lit.device)
+    huffman_lanes(*_huff_args(d), lit, ok)
+    sequence_lanes(*_seq_args(d), ll, ml, of, ok)
+    offsets, out_len, _ = resolve_frames(ll, ml, of, d["is_real"],
+                                         d["init_hist"], d["chain_rows"],
+                                         d["chain_row_cont"])
+    (g,) = d["chains"]
+    outs = []
+    for fn in (execute_window, execute_window_plain):
+        acc = torch.zeros((len(g["first"]), g["width"]), dtype=torch.uint8,
+                          device=lit.device)
+        written, w_ok = fn(ll, ml, offsets, lit, out_len, d["row_lit_len"],
+                           g["rows"], acc, g["base"], g["hist0"], g["cap"])
+        outs.append((acc, written, w_ok))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    acc, written, w_ok = outs[0]
+    e = libzstd[group][0]
+    assert bool(w_ok.all()) and int(written[0]) == e["size"]
+    assert acc[0, g["base"]:g["base"] + e["size"]].cpu().numpy().tobytes() \
+        == e["data"]
+
+
+def test_libzstd_mutants_on_cuda(libzstd):
+    """128 targeted mutants beside valid frames: no CUDA error, each result
+    the host oracle's decode_frame's (None where it raises), each valid
+    frame's own device row ok and exact, the context alive afterwards."""
+    frames, mutants, beside = _libzstd_mutant_batch(libzstd)
+    dec = BatchDecoder()
+    batch = dec.prepare(frames)
+    outputs, out_len, ok = dec.run_device(batch)
+    got = dec._postprocess(frames, batch, outputs, out_len, ok)
+    torch.cuda.synchronize()
+    for j, (m, v) in enumerate(zip(mutants, beside)):
+        try:
+            want = decode_frame(m[3])
+        except ZstdError:
+            want = None
+        assert got[2 * j] == want, (j, m[1], m[2].kind)
+        meta = batch.metas[2 * j + 1]
+        r = meta.rows[0]
+        assert bool(ok[r]) and got[2 * j + 1] == v["data"], v["file"]
+    main = libzstd["main"]
+    assert dec.decode_frames([e["frame"] for e in main]) == \
+        [e["data"] for e in main]

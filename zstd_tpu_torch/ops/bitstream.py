@@ -38,3 +38,26 @@ def read_bits(windows: torch.Tensor, pos: torch.Tensor, n: torch.Tensor):
     phantom = (start - new_pos).clamp(max=40)
     val = (val << phantom) & mask
     return val, new_pos
+
+
+def length_groups(n: torch.Tensor) -> list:
+    """The lanes with n > 0, as index tensors of lanes whose lengths lie in
+    one power-of-4 range ([1, 4), [4, 16), ...). A step loop over a group
+    runs to its own longest lane, so a batch of many short lanes and a few
+    long ones costs the long ones' steps over few lanes, not over all."""
+    live = torch.nonzero(n > 0)[:, 0]
+    if live.numel() == 0:
+        return []
+    # floor(log4(n)) from the bit length of n
+    key = (torch.frexp(n[live].double())[1] - 1) // 2
+    return [live[key == k] for k in torch.unique(key).tolist()]
+
+
+def lane_windows(streams_u8: torch.Tensor, live: torch.Tensor,
+                 init_pos: torch.Tensor) -> torch.Tensor:
+    """build_windows of the rows `live`, cut past the byte of their highest
+    initial position: a reverse read never rises above its start, so the
+    bytes past it are never read and a group of short streams does not pay
+    for the batch's widest."""
+    top = int(init_pos[live].max().clamp(min=0)) // 8 + 1
+    return build_windows(streams_u8[live][:, :min(top, streams_u8.shape[1])])

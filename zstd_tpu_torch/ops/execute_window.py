@@ -100,9 +100,12 @@ def execute_window_plain(ll, ml, offset, lit, out_len, row_lit_len, plan,
                 & (base + w + total <= width))
         run = good & (total > 0)
         if bool(run.any()):
+            # the history the groups' matches reach before their start
+            # (at most avail, by rec_ok): only those bytes ride along
+            before = torch.where(m > 0, o - (endpos - m), 0)
             _execute_groups(l[run], m[run], o[run], lit[rows[run]], acc,
                             live[run], base + w[run], total[run],
-                            int(avail[run].max()))
+                            int(before[run].max().clamp(min=0)))
         written[live] = w + torch.where(good, total, 0)
         ok[live] = good
     return written, ok

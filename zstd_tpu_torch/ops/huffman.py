@@ -27,7 +27,8 @@ walks a lane serially only when it is malformed or its table breaks
 import torch
 
 from zstd_tpu_torch.ops import _kernels
-from zstd_tpu_torch.ops.bitstream import build_windows, read_bits
+from zstd_tpu_torch.ops.bitstream import (lane_windows, length_groups,
+                                          read_bits)
 
 # The kernel stages a lane's stream in shared memory up to STAGE_BYTES (a
 # longer one reads global memory); with its 4 KiB table, 17 blocks fit an SM
@@ -37,16 +38,23 @@ STAGE_BYTES = 8192
 
 def huffman_lanes_plain(streams, init_pos, tid, nsym, dst_frame, dst_off,
                         tables, maxbits, lit, frame_ok) -> None:
-    """Plain torch version of the kernel (same arguments, same result)."""
-    live = torch.nonzero(nsym > 0)[:, 0]
-    if live.numel() == 0:
-        return
+    """Plain torch version of the kernel (same arguments, same result).
+    Lanes are independent: each group of similar length (length_groups)
+    steps on its own."""
+    for live in length_groups(nsym):
+        _huffman_group(live, streams, init_pos, tid, nsym, dst_frame,
+                       dst_off, tables, maxbits, lit, frame_ok)
+
+
+def _huffman_group(live, streams, init_pos, tid, nsym, dst_frame, dst_off,
+                   tables, maxbits, lit, frame_ok) -> None:
+    """huffman_lanes_plain over the lanes `live` (indices, nsym > 0)."""
     n_frames, lit_w = lit.shape
     n = nsym[live].long()
     t = tid[live].long().clamp(0, tables.shape[0] - 1)
     mb = maxbits[t].long().clamp(0, 11)
     mask = (torch.ones_like(mb) << mb) - 1
-    win = build_windows(streams[live])
+    win = lane_windows(streams, live, init_pos)
     pos0 = init_pos[live].long()
     ok = pos0 >= 0
     state, pos = read_bits(win, pos0, mb)

@@ -31,7 +31,8 @@ import torch
 
 from zstd_tpu_torch.common import constants as C
 from zstd_tpu_torch.ops import _kernels
-from zstd_tpu_torch.ops.bitstream import build_windows, read_bits
+from zstd_tpu_torch.ops.bitstream import (lane_windows, length_groups,
+                                          read_bits)
 
 LL_BASE = np.array(C.LL_CODE_BASELINE, dtype=np.int64)
 LL_XTRA = np.array(C.LL_CODE_EXTRA_BITS, dtype=np.int64)
@@ -49,10 +50,21 @@ def sequence_lanes_plain(streams, init_pos, nseq, ll_tid, of_tid, ml_tid,
                          ll_tables, of_tables, ml_tables, ll_logs, of_logs,
                          ml_logs, dst_frame, dst_off, lit_total, trail_slot,
                          ll_out, ml_out, of_out, frame_ok) -> None:
-    """Plain torch version of the kernel (same arguments, same result)."""
-    live = torch.nonzero(nseq > 0)[:, 0]
-    if live.numel() == 0:
-        return
+    """Plain torch version of the kernel (same arguments, same result).
+    Lanes are independent: each group of similar length (length_groups)
+    steps on its own."""
+    for live in length_groups(nseq):
+        _sequence_group(live, streams, init_pos, nseq, ll_tid, of_tid,
+                        ml_tid, ll_tables, of_tables, ml_tables, ll_logs,
+                        of_logs, ml_logs, dst_frame, dst_off, lit_total,
+                        trail_slot, ll_out, ml_out, of_out, frame_ok)
+
+
+def _sequence_group(live, streams, init_pos, nseq, ll_tid, of_tid, ml_tid,
+                    ll_tables, of_tables, ml_tables, ll_logs, of_logs,
+                    ml_logs, dst_frame, dst_off, lit_total, trail_slot,
+                    ll_out, ml_out, of_out, frame_ok) -> None:
+    """sequence_lanes_plain over the lanes `live` (indices, nseq > 0)."""
     dev = streams.device
     n_frames, seq_w = ll_out.shape
     n = nseq[live].long()
@@ -68,7 +80,7 @@ def sequence_lanes_plain(streams, init_pos, nseq, ll_tid, of_tid, ml_tid,
     def entry(tabs, t, state):
         return tabs[t, state.clamp(0, tabs.shape[1] - 1)]
 
-    win = build_windows(streams[live])
+    win = lane_windows(streams, live, init_pos)
     pos0 = init_pos[live].long()
     s_ll, pos = read_bits(win, pos0, ll_log)
     s_of, pos = read_bits(win, pos, of_log)
