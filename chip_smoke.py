@@ -104,6 +104,16 @@ phase raises on failure, so any failure exits non-zero:
      every result the host oracle's decode_frame's, every valid frame ok,
      the corrupted lanes reaching the Huffman and sequence kernels counted
      (at least 128 each); the main batch exact again afterwards
+ 20. bench.py on the card, run after phase 17: zstd_tpu_torch.bench's
+     scenarios in this process (run_scenarios), the headline on phase 4's
+     frames and payloads, then libzstd's main frames tiled to 1024 with
+     its chained and far frames, the longframe, bigwindow and encode
+     scenarios, each scenario's kernels launched in its own run
+     (BENCH_KERNELS); the bench's JSON line on a line of its own
+     (`[chip_smoke] bench: {...}`), every key of BENCH_r05.json's
+     `parsed` in it, every correctness key true (each read from the
+     frames' own device rows); a pipelined round beside a warm host
+     prepare of its frames and a serving run, and the phase's seconds
 
 The line before the last is the `kernels` JSON object; the last line is
 {"ok": true, "device": {...}}.
@@ -117,17 +127,11 @@ import time
 
 import numpy as np
 
+from zstd_tpu_torch.testdata.payloads import make_corpus
+
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA's H100 SXM data sheet
 # no integer-ALU row in the data sheet: the float32 non-tensor peak stands in
 H100_OPS_PER_S = 67e12
-
-
-def make_corpus(total_mb: int = 64, frame_kb: int = 128, seed: int = 0):
-    """bench.py's corpus (zstd_tpu_torch/testdata/payloads.py's copy):
-    text-ish, structured and binary runs, in frames of frame_kb KiB."""
-    from zstd_tpu_torch.testdata.payloads import make_corpus as corpus
-
-    return corpus(total_mb, frame_kb, seed)
 
 
 def say(*args):
@@ -350,12 +354,9 @@ def cuda_ms(setup, call, fn, reps: int) -> float:
 def phase_card():
     import torch
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    need(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    from zstd_tpu_torch.bench import card as query_card
+
+    card = query_card("cuda:0")
     print(card, flush=True)
     name = torch.cuda.get_device_name(0)
     say(f"card: {name}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -984,6 +985,7 @@ def phase_chained():
 def phase_far():
     import torch
 
+    from zstd_tpu_torch.bench import bigwindow_body
     from zstd_tpu_torch.common.config import CodecConfig, CompressionLevel
     from zstd_tpu_torch.encoding.frame_enc import compress_to_vec
     from zstd_tpu_torch.models import framer
@@ -992,9 +994,7 @@ def phase_far():
 
     # bench.py's bigwindow body: 9 MiB, its first MiB again, 1 MiB more,
     # then MiB 2-3 again: matches 9+ MiB back
-    head = b"".join(make_corpus(9, seed=7))
-    body = (head + head[:1 << 20] + b"".join(make_corpus(1, seed=8))
-            + head[2 << 20:3 << 20])
+    body = bigwindow_body(12)
     frame = bytes(compress_to_vec(body, CompressionLevel.FASTEST,
                                   CodecConfig(window_log=24)))
     dec = BatchDecoder()
@@ -2339,19 +2339,62 @@ def _phase_libzstd(card, serving_gbps, fx, batches, plain):
         f"half included)")
 
 
+# the kernels each scenario of zstd_tpu_torch.bench must launch
+BENCH_KERNELS = {"headline": SINGLE_GROUP,
+                 "libzstd": SINGLE_GROUP + ("execute_window",),
+                 "longframe": ("huffman", "sequence", "resolve",
+                               "execute_window"),
+                 "bigwindow": ("huffman", "sequence", "resolve",
+                               "execute_window"),
+                 "encode": ("parse", "fse_encode")}
+
+
+def phase_bench(payloads, frames, card):
+    """20. zstd_tpu_torch.bench's scenarios (bench.py's on the card), the
+    headline on phase 4's FASTEST frames: the bench's JSON line, which must
+    hold every key of BENCH_r05.json's `parsed` and every correctness key
+    true; each scenario run on its own, the kernels of BENCH_KERNELS
+    launched in it; a pipelined round beside its host prepare and a
+    serving run."""
+    from zstd_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    counters = {**_counters(), **_encode_counters()}
+    res, launched = {}, {}
+    for name in bench.SCENARIOS:
+        for fn in counters.values():
+            fn.launches = 0
+        res.update(bench.run_scenarios(
+            [name], headline_frames=(payloads, frames, "fastest")))
+        launched[name] = {k: fn.launches for k, fn in counters.items()
+                          if fn.launches}
+        missing = set(BENCH_KERNELS[name]) - set(launched[name])
+        need(not missing, f"bench: scenario {name} never launched kernels "
+                          f"{sorted(missing)}")
+    res["device"] = card
+    say("bench: " + json.dumps(res))
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "BENCH_r05.json")) as f:
+        missing = [k for k in json.load(f)["parsed"] if k not in res]
+    need(not missing, f"bench: the line lacks bench.py's keys {missing}")
+    bad = bench.failed_checks(res)
+    need(not bad, f"bench: correctness keys not true: {bad}")
+    t_round = res["decoded_mb"] * 1e6 / (res["pipelined_gbps"] * 1e9)
+    say(f"bench: launches per scenario {json.dumps(launched)}")
+    say(f"bench: every correctness key true; a pipelined round "
+        f"{t_round * 1e3:.3f} ms ({res['pipelined_gbps']:.4f} GB/s), a "
+        f"warm host prepare {res['pipelined_prepare_s'] * 1e3:.3f} ms, a "
+        f"serving run {res['device_s'] * 1e3:.3f} ms ({res['value']:.4f} GB/s), end "
+        f"to end {res['end_to_end_gbps']:.4f} GB/s; phase 20 "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    try:
-        import zstd_tpu_torch  # noqa: F401
-    except ImportError as e:
-        print(f"chip_smoke: zstd_tpu_torch not importable: {e}",
-              file=sys.stderr)
         return 1
     t_start = time.perf_counter()
     card, name = phase_card()
@@ -2385,6 +2428,7 @@ def main() -> int:
     rows += phase_encode_kernels(args, launches)
     phase_ranks(main_frames)
     phase_parallel_encode(payloads, host_frames)
+    phase_bench(main_payloads, main_frames, card)
     say(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
